@@ -6,9 +6,16 @@
 Phases, one line each (elapsed seconds in brackets):
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. the cold nvcc build of every kernel of the port (csrc/*.cu -> _build/);
-  3. each kernel against its plain PyTorch twin on the card, on the main
-     path's input and on a ragged crop of it, timed with CUDA events
-     (median), beside the least time the card could take (its bound);
+     a register spill in ptxas's report fails;
+  3. each kernel's registers, shared memory and blocks per SM as the runtime
+     reports them (local memory fails); each kernel against its plain
+     PyTorch twin on the card, on the main
+     path's input and on a ragged crop of it, and two launches of it on one
+     input against each other (bit for bit).  Its device time comes from 100
+     calls captured in a CUDA graph (events around each replay, median of 5),
+     cross-checked by torch.profiler; its time through the wrapper, and the
+     twin's, from CUDA events around single calls (median of 30); beside them
+     the least time the card could take (its bound);
   4. the main path: `SlamConfig()` defaults, synthetic frames quantised to u8,
      build_frame_maps -> init_state -> slam_step per frame, then the same
      frames through slam_step_chunk; launch counts, drift against the
@@ -24,6 +31,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -49,7 +57,8 @@ def card_line():
 
 
 def time_ms(fn, reps=30, warmup=3):
-    """Median per-call time of fn() on the card, CUDA events around each call."""
+    """Median per-call time of fn() on the card, CUDA events around each call:
+    the device's time plus whatever host work in fn() it waits for."""
     import torch
 
     for _ in range(warmup):
@@ -64,6 +73,58 @@ def time_ms(fn, reps=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, n=100, replays=5, warmup=3):
+    """Device time of one fn() call: n calls captured in a CUDA graph, events
+    around each replay, median of `replays` replays over n.  No host work
+    falls between the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(times)
+
+
+def profiler_ms(fn, kernel_name, n=20):
+    """Mean device time of the kernel named `kernel_name` per fn() call, from
+    torch.profiler's key_averages(); None when the trace shows no device time
+    for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if kernel_name in ev.key:
+            us = next((getattr(ev, k) for k in ("device_time_total", "cuda_time_total")
+                       if getattr(ev, k, 0)), 0)
+            if us > 0 and ev.count:
+                return us / 1e3 / n
+    return None
 
 
 def doh_bound_ms(S, radii):
@@ -98,12 +159,15 @@ def render_frames(cfg, n_frames, seed):
 
 def check_doh_kernel(torch, doh_cuda, img, filters):
     """Kernel vs twin on one image; returns (max_abs_err, per-sigma tolerances,
-    ms, plain_ms)."""
+    device_ms, wrapper_ms, plain_ms)."""
     out = doh_cuda.doh_response_cuda(img, filters)
+    again = doh_cuda.doh_response_cuda(img, filters)
     ref = doh_cuda.doh_response_reference(img, filters)
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"DoH kernel output bad: shape {tuple(out.shape)}")
+    if not torch.equal(out, again):
+        raise AssertionError("DoH kernel: two launches on one input differ")
     err = float((out - ref).abs().max())
     # tolerance of the port's CPU tests (tests/test_torch_doh.py): the same
     # sums in another order, amplified by sigma^4 (up to 1e4); 2e-3 * max|ref|
@@ -115,9 +179,10 @@ def check_doh_kernel(torch, doh_cuda, img, filters):
         if not (tol[s] > 0 and err_s <= tol[s]):
             raise AssertionError(f"DoH kernel disagrees with its twin at S={img.shape[0]}, "
                                  f"sigma slice {s}: max abs err {err_s} > {tol[s]}")
-    ms = time_ms(lambda: doh_cuda.doh_response_cuda(img, filters))
+    device_ms = graph_ms(lambda: doh_cuda.doh_response_cuda(img, filters))
+    wrapper_ms = time_ms(lambda: doh_cuda.doh_response_cuda(img, filters))
     plain_ms = time_ms(lambda: doh_cuda.doh_response_reference(img, filters))
-    return err, tol, ms, plain_ms
+    return err, tol, device_ms, wrapper_ms, plain_ms
 
 
 def stage_ms(torch, cfg, maps, state, frame):
@@ -190,9 +255,15 @@ def main() -> int:
     lib_path = doh_cuda.build_library()
     log(f"build: csrc/doh.cu -> {lib_path.name} in {time.time() - t:.2f} s")
     doh_cuda.load_library()
+    spills = []
     for line in doh_cuda.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"doh_kernel spills registers: {spills}")
 
     # 3. kernel vs twin, on the main path's Cartesian image (S = cart_size)
     # and on a ragged crop of it (S = 1000: no multiple of the tile sizes)
@@ -204,22 +275,43 @@ def main() -> int:
     maps = F.build_frame_maps(cfg)
     torch.cuda.synchronize()
     log(f"build_frame_maps: {time.time() - t:.2f} s")
+    info = doh_cuda.kernel_info(max(maps.doh.radii), len(maps.doh.radii))
+    log(f"doh_kernel: {info['registers']} registers, {info['local_bytes']} B local, "
+        f"{info['smem_bytes']} B shared per block, {info['blocks_per_sm']} blocks per SM")
+    if info["local_bytes"]:
+        raise AssertionError(f"doh_kernel uses local memory: {info}")
     cart0 = warp_polar_to_cartesian(
         F._dequantize_polar(torch.as_tensor(frames[0], device="cuda")), maps.warp)
     for img in (cart0, cart0[:1000, :1000].contiguous()):
         S = img.shape[0]
-        err, tol, ms, plain_ms = check_doh_kernel(torch, doh_cuda, img, maps.doh)
+        err, tol, device_ms, wrapper_ms, plain_ms = check_doh_kernel(
+            torch, doh_cuda, img, maps.doh)
         bound, bound_by = doh_bound_ms(S, maps.doh.radii)
         log(f"doh S={S} sigmas={cfg.doh_sigmas}: max_abs_err {err:.3e} "
             f"(tol per sigma {', '.join(f'{t:.3e}' for t in tol)}) "
-            f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bound_by})")
+            f"kernel {device_ms:.5f} ms on the device (graph replay), {wrapper_ms:.5f} ms "
+            f"through the wrapper, twin {plain_ms:.4f} ms, bound {bound:.5f} ms "
+            f"({bound_by}), {bound / device_ms:.1%} of bound")
         if S == cfg.cart_size:
+            prof_ms = profiler_ms(lambda: doh_cuda.doh_response_cuda(img, maps.doh),
+                                  "doh_kernel")
+            log(f"doh S={S} torch.profiler: " + (
+                "no device time for doh_kernel in key_averages()" if prof_ms is None
+                else f"{prof_ms:.5f} ms of device time per call"))
+            log("doh redundant multiply-adds per sigma (computed from the tiling, not "
+                "measured): " + ", ".join(
+                    f"{sg} {f:.3f}" for sg, f in
+                    zip(cfg.doh_sigmas, doh_cuda.redundant_work(S, maps.doh.radii))))
+            # `ms` is the time of one call through the wrapper (events around
+            # it, host work included), as the port first timed the kernel;
+            # `wrapper_ms` is the same reading, `device_ms` the graph timer's
             doh_row = dict(name="doh_response", route="cuda",
                            source="radarslampy_tpu_torch/csrc/doh.cu",
                            replaces="radarslampy_tpu/ops/pallas/doh_pallas.py:84",
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=bound_by, library_ms=None)
+                           max_abs_err=err, ms=wrapper_ms, device_ms=device_ms,
+                           wrapper_ms=wrapper_ms, profiler_ms=prof_ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by,
+                           bound_share=bound / device_ms, library_ms=None)
 
     # 4. main path at the default config
     doh_cuda.launches = 0

@@ -121,6 +121,6 @@ def test_frame_maps_carried_from_jax_equal_the_ports_own():
     for a, b in zip(own.warp, carried.warp):
         if torch.is_tensor(a):
             assert torch.equal(a, b)
-    for f in ("taps", "radius", "sig4"):
-        assert torch.equal(getattr(own.doh, f), getattr(carried.doh, f)), f
+    assert torch.equal(own.doh.taps, carried.doh.taps)
     assert own.doh.radii == carried.doh.radii
+    assert own.doh.scales == carried.doh.scales
