@@ -19,9 +19,19 @@ Phases, one line each (elapsed seconds in brackets):
   4. the main path: `SlamConfig()` defaults, synthetic frames quantised to u8,
      build_frame_maps -> init_state -> slam_step per frame, then the same
      frames through slam_step_chunk; launch counts, drift against the
-     rendered ground truth, chunk == per-frame; the time of each stage of
-     the step; then the same step at a small config on the card and on the
-     CPU, which must agree.
+     rendered ground truth, chunk == per-frame; then the same step at a
+     small config on the card and on the CPU, which must agree;
+  5. the driver: `RadarSlamSystem(...).run()` at `SlamConfig()` over phase
+     4's frames, fed through `frame_source` from a sequence directory that
+     holds radar.timestamps and a GT CSV (no PNGs: the card machine may lack
+     PIL); its trajectory and final state equal phase 4's loop bit for bit;
+     a run checkpointed at frame 6 and resumed equals the straight run bit
+     for bit; the metrics JSONL; ATE, drift and fps; then one driver step
+     under torch.profiler, whose `record_function` ranges inside slam_step
+     give each stage's host and device time and the step's device idle share;
+  6. FMT: `SlamConfig(use_fmt=True)` at full width on a pure turn, its
+     rotation against the rendered turn, one FMT step profiled; then the
+     FMT step at a small config on the card and on the CPU, which must agree.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -30,11 +40,14 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.time()
@@ -43,6 +56,19 @@ T0 = time.time()
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 N_FRAMES = 12
+CHECKPOINT_AT = 6   # the driver's mid-run checkpoint, resumed in phase 5
+FMT_TURN = 0.15     # rad per frame of phase 6's pure turn
+SMALL = dict(cart_size=256, cart_downsample=16, n_candidates=256, max_keyframes=16)
+# Phase 6: FMT's rotation against the rendered turn.  One polar row is
+# 2*pi/400 = 0.0157 rad; the parabolic refinement lands well inside it
+# (CPU, this turn: within 1.5e-3 rad).
+FMT_ROT_TOL = 0.01
+# Card against CPU at the small config with use_fmt: the pose bound of the
+# step from identical state (tests/test_torch_frontend.py), and for the FMT
+# rotation the CPU bound against JAX (tests/test_torch_fmt.py): cuFFT and
+# pocketfft sum in other orders, ~1e-6 on the correlation surface.
+FMT_CARD_CPU_ROT = 1e-5
+Frame = collections.namedtuple("Frame", "power frame_timestamp")
 
 
 def log(msg):
@@ -105,6 +131,12 @@ def graph_ms(fn, n=100, replays=5, warmup=3):
     return statistics.median(times)
 
 
+def _device_us(ev):
+    """A profiler event's device time in us (`cuda_time_total` before torch 2.4)."""
+    us = getattr(ev, "device_time_total", None)
+    return ev.cuda_time_total if us is None else us
+
+
 def profiler_ms(fn, kernel_name, n=20):
     """Mean device time of the kernel named `kernel_name` per fn() call, from
     torch.profiler's key_averages(); None when the trace shows no device time
@@ -120,8 +152,7 @@ def profiler_ms(fn, kernel_name, n=20):
         torch.cuda.synchronize()
     for ev in prof.key_averages():
         if kernel_name in ev.key:
-            us = next((getattr(ev, k) for k in ("device_time_total", "cuda_time_total")
-                       if getattr(ev, k, 0)), 0)
+            us = _device_us(ev)
             if us > 0 and ev.count:
                 return us / 1e3 / n
     return None
@@ -185,44 +216,181 @@ def check_doh_kernel(torch, doh_cuda, img, filters):
     return err, tol, device_ms, wrapper_ms, plain_ms
 
 
-def stage_ms(torch, cfg, maps, state, frame):
-    """Host time of each stage of one slam_step, synchronised around each
-    (median of 5), from `state` on `frame`; the retrack stage (DoH + ANMS +
-    merge) is timed whether or not this frame needs it."""
+def render_turn(cfg, n_frames, seed):
+    """Scans of a sensor turning in place by FMT_TURN per frame, as u8."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.sim import fakedata as fd
+
+    rng = np.random.default_rng(seed)
+    world_pts, world_refl = fd.make_world(rng, 1200, 80.0)
+    poses = np.stack([[0.0, 0.0, FMT_TURN * t] for t in range(n_frames)])
+    return poses, np.stack([
+        np.clip(np.round(fd.render_polar_scan(world_pts, world_refl, p, cfg, rng=rng,
+                                              noise=0.01) * 255.0), 0, 255).astype(np.uint8)
+        for p in poses])
+
+
+def leaves(state):
+    return list(state[:-2]) + list(state.map) + [state.frame_idx]
+
+
+def states_equal(torch, a, b):
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def step_profile(prof):
+    """From a trace holding one slam_step: {range: (host ms, device ms)} for
+    the step and each of its `slam_step.<stage>` ranges, the step's host
+    window (ms), and the device's busy time inside that window (ms).  A
+    range's device time is the sum of the kernels (and copies) launched
+    inside it; busy time is the union of all device activity in the window."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = [e for e in events if e.device_type == DeviceType.CPU
+              and (e.name == "slam_step" or e.name.startswith("slam_step."))]
+    stages = {e.name: (e.cpu_time_total / 1e3, _device_us(e) / 1e3) for e in ranges}
+    step = [e for e in ranges if e.name == "slam_step"]
+    if len(step) != 1 or len(stages) != len(ranges):
+        raise AssertionError(f"expected one slam_step with one range per stage, got "
+                             f"{[e.name for e in ranges]}")
+    t0, t1 = step[0].time_range.start, step[0].time_range.end
+    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in events
+                   if e.device_type != DeviceType.CPU and not e.name.startswith("slam_step")
+                   and not getattr(e, "is_user_annotation", False))
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if b <= a:
+            continue
+        if cur is None or a > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0 if cur is None else cur[1] - cur[0]
+    return stages, (t1 - t0) / 1e3, busy / 1e3
+
+
+def untraced_ms(torch, step, dev):
+    """Median wall time (ms) of five synchronised calls of `step()` with no
+    profiler on."""
+    ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms)
+
+
+def log_profile(label, stages, window_ms, busy_ms, unprofiled_ms):
+    """The idle share of the traced window comes from the profiled step
+    alone.  The profiler's own host work stretches that window, so the share
+    is also given over `unprofiled_ms`: the same step (same state, same
+    frame) timed untraced in this run."""
+    log(f"{label}: " + ", ".join(f"{k.split('.', 1)[-1]} {h:.2f} / {d:.3f}"
+                                 for k, (h, d) in stages.items())
+        + " (ms on the host / ms of device activity launched in the range)")
+    log(f"{label}: device busy {busy_ms:.3f} ms; idle share {1 - busy_ms / window_ms:.4f} "
+        f"of the traced window ({window_ms:.2f} ms); {1 - busy_ms / unprofiled_ms:.4f} of "
+        f"the same step untraced ({unprofiled_ms:.2f} ms, median of 5)")
+
+
+def drive(torch, cfg, gt, frames, dev, tmp):
+    """Phase 5 on `dev`: the driver over `frames` (u8 [N, A, Wpad]) of the
+    sequence written for `gt`; returns what main() checks and prints."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch import RadarSlamSystem
     from radarslampy_tpu_torch.models import frontend as F
-    from radarslampy_tpu_torch.ops.features import get_features, merge_features
-    from radarslampy_tpu_torch.ops.grid import warp_polar_to_cartesian
-    from radarslampy_tpu_torch.ops.motion import solve_motion, undistort
-    from radarslampy_tpu_torch.ops.robust import reject_outliers
-    from radarslampy_tpu_torch.ops.tracking import track_klt
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.sim import oxford_files
+    from radarslampy_tpu_torch.utils.checkpoint import load_state
 
-    def timed(fn):
-        ts = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        return out, statistics.median(ts)
+    stamps = oxford_files.write_sequence(tmp, "synth", gt, cfg)
 
-    res = {}
-    polar = F._dequantize_polar(torch.as_tensor(frame, device="cuda"))
-    cart, res["warp"] = timed(lambda: warp_polar_to_cartesian(polar, maps.warp))
-    tr, res["klt"] = timed(lambda: track_klt(state.prev_cart, cart, state.feat_px,
-                                             state.feat_mask, cfg))
-    prev = undistort(state.velocity, F._px_to_metric(state.feat_px, cfg), cfg.scan_period_s)
-    curr_local = F._px_to_metric(tr.coords, cfg)
-    curr = undistort(state.velocity, curr_local, cfg.scan_period_s)
-    r = cfg.cart_resolution_m
-    rej, res["outliers"] = timed(lambda: reject_outliers(prev / r, curr / r, tr.status, cfg))
-    _, res["lm"] = timed(lambda: solve_motion(state.pose, state.feat_world, curr_local,
-                                              state.pose, rej.inlier_mask, cfg))
-    _, res["retrack"] = timed(lambda: merge_features(tr.coords, rej.inlier_mask,
-                                                     get_features(cart, cfg, maps.doh)))
-    _, res["keyframe_cloud"] = timed(lambda: F.keyframe_pointcloud(polar, state.velocity, cfg))
-    _, res["step"] = timed(lambda: F.slam_step(state, frame, maps, cfg))
-    return res
+    def source(lo, hi):
+        return [Frame(frames[i], int(stamps[i])) for i in range(lo, hi)]
+
+    n = len(frames)
+    metrics = f"{tmp}/metrics.jsonl"
+    system = RadarSlamSystem("synth", tmp, cfg, device=dev)
+    doh_cuda.launches = 0
+    t = time.time()
+    straight = system.run(frame_source=source(0, n), metrics_path=metrics)
+    wall_s = time.time() - t
+    launches = doh_cuda.launches
+    recs = [json.loads(line) for line in open(metrics)]
+
+    ck, snap = f"{tmp}/ck", f"{tmp}/ck_at_{CHECKPOINT_AT}"
+
+    def snapshot(k, out):  # frame k's progress call comes after frame k-1's checkpoint
+        if k == CHECKPOINT_AT + 1:
+            shutil.copytree(ck, snap)
+
+    checkpointed = RadarSlamSystem("synth", tmp, cfg, progress=snapshot, device=dev).run(
+        frame_source=source(0, n), checkpoint_dir=ck, checkpoint_every=CHECKPOINT_AT)
+    resumed = RadarSlamSystem("synth", tmp, cfg, device=dev).run(
+        frame_source=source(CHECKPOINT_AT + 1, n), resume_from=snap)
+
+    # the profiled step (frame CHECKPOINT_AT + 1 of a resumed run), and the
+    # same step from the same checkpointed state untraced
+    at_ck, _ = load_state(snap, cfg, dev)
+    frame = frames[CHECKPOINT_AT + 1]
+    unprofiled = untraced_ms(torch, lambda: F.slam_step(at_ck, frame, system.maps, cfg), dev)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev == "cuda" else [])
+    with profile(activities=activities) as prof:
+        system.run(frame_source=source(CHECKPOINT_AT + 1, CHECKPOINT_AT + 2), resume_from=snap)
+    return dict(straight=straight, checkpointed=checkpointed, resumed=resumed, recs=recs,
+                wall_s=wall_s, launches=launches, profile=(*step_profile(prof), unprofiled),
+                est=np.asarray(straight.trajectory.as_arrays()[1]))
+
+
+def fmt_turn(torch, cfg, frames, dev):
+    """Phase 6's FMT step over `frames` on `dev` -> (StepOutputs, ms per
+    frame, DoH launches of the run, the last step's profile and its
+    untraced time).  The untraced repeats of the last step come after the
+    launches are read."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+
+    maps = F.build_frame_maps(cfg, dev)
+    state = F.init_state(frames[0], np.zeros(3), maps, cfg)
+    outs, ms = [], []
+    for f in frames[1:-1]:
+        t = time.time()
+        state, out = F.slam_step(state, f, maps, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        outs.append(out)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev == "cuda" else [])
+    with profile(activities=activities) as prof:
+        _, out = F.slam_step(state, frames[-1], maps, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    outs.append(out)
+    launches = doh_cuda.launches
+    unprofiled = untraced_ms(torch, lambda: F.slam_step(state, frames[-1], maps, cfg), dev)
+    return outs, ms, launches, (*step_profile(prof), unprofiled)
+
+
+def range_overhead_us():
+    """Host cost of one empty record_function range with no profiler on."""
+    from torch.profiler import record_function
+
+    n = 20000
+    t = time.perf_counter()
+    for _ in range(n):
+        with record_function("slam_step.probe"):
+            pass
+    return (time.perf_counter() - t) / n * 1e6
 
 
 def main() -> int:
@@ -323,7 +491,6 @@ def main() -> int:
         f"doh launches {init_launches}")
     state, outs, step_ms = state0, [], []
     for f in frames[1:]:
-        state_before_last = state
         t = time.time()
         state, out = F.slam_step(state, f, maps, cfg)
         torch.cuda.synchronize()
@@ -364,13 +531,9 @@ def main() -> int:
         raise AssertionError(f"chunk != per-frame: fields {unequal} differ, "
                              f"launches {chunk_launches} vs {launches - init_launches}")
     log("chunk == per-frame: every output field equal bit for bit")
-    stages = stage_ms(torch, cfg, maps, state_before_last, frames[-1])
-    log("stage ms (host clock, synchronised, median of 5): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
     # the same step on the card and on the CPU (plain twins) at a small config
-    small = SlamConfig(cart_size=256, cart_downsample=16, n_candidates=256,
-                       max_keyframes=16)
+    small = SlamConfig(**SMALL)
     _, sframes = render_frames(small, 5, seed=1)
     res = {}
     for dev in ("cuda", "cpu"):
@@ -388,7 +551,79 @@ def main() -> int:
     if not (flags and d <= 1e-3):
         raise AssertionError("card and CPU steps disagree at the small config")
 
-    doh_row["launches"] = launches
+    # 5. the driver at SlamConfig(), over phase 4's frames
+    with tempfile.TemporaryDirectory() as tmp:
+        drv = drive(torch, cfg, gt, frames, "cuda", tmp)
+    straight, driver_launches = drv["straight"], drv["launches"]
+    log(f"driver: run() over {straight.frames} frames in {drv['wall_s']:.2f} s, fps {straight.fps:.3f} "
+        f"(from the end of the first step) on {card}; keyframes {straight.n_keyframes}, "
+        f"ATE {straight.rmse_vs_gt:.4f} m, min inliers {straight.min_inliers}, fit failures "
+        f"{straight.n_fit_failures}, doh launches on the straight run {driver_launches}")
+    drift_d = float(np.linalg.norm(drv["est"][-1, :2] - gt[-1, :2]))
+    if not np.array_equal(drv["est"], est.astype(np.float64)):
+        raise AssertionError("driver trajectory != the per-frame loop of phase 4")
+    if not states_equal(torch, straight.final_state, state):
+        raise AssertionError("driver final state != the per-frame loop's state")
+    if not (np.array_equal(drv["checkpointed"].trajectory.as_arrays()[1], drv["est"])
+            and states_equal(torch, drv["checkpointed"].final_state, state)):
+        raise AssertionError("checkpointing changed the run")
+    res_r = drv["resumed"]
+    if not (res_r.frames == N_FRAMES - CHECKPOINT_AT - 1
+            and np.array_equal(res_r.trajectory.as_arrays()[0],
+                               straight.trajectory.as_arrays()[0])
+            and np.array_equal(res_r.trajectory.as_arrays()[1], drv["est"])
+            and states_equal(torch, res_r.final_state, straight.final_state)):
+        raise AssertionError(f"resume from frame {CHECKPOINT_AT} != the straight run")
+    recs = drv["recs"]
+    if not (len(recs) == N_FRAMES - 1
+            and sum(r["is_keyframe"] for r in recs) == straight.n_keyframes - 1
+            and [r["is_keyframe"] for r in recs] == kf):
+        raise AssertionError(f"metrics JSONL: {len(recs)} rows, keyframes "
+                             f"{sum(r['is_keyframe'] for r in recs)} vs {straight.n_keyframes}")
+    if not (np.isfinite(straight.rmse_vs_gt) and drift_d < 1.5):
+        raise AssertionError(f"ATE {straight.rmse_vs_gt}, drift {drift_d} m")
+    if driver_launches < 1:
+        raise AssertionError("the driver's run launched no DoH kernel")
+    log(f"driver == per-frame loop bit for bit (trajectory, every state leaf); resume at "
+        f"frame {CHECKPOINT_AT} == straight run bit for bit; metrics {len(recs)} rows; "
+        f"drift {drift_d:.3f} m")
+    log_profile(f"driver step {CHECKPOINT_AT + 1} profiled", *drv["profile"])
+    if drv["profile"][2] <= 0:
+        raise AssertionError("the profiled driver step shows no device activity")
+    log(f"record_function range, profiler off: {range_overhead_us():.2f} us on the host")
+
+    # 6. FMT at full width on a pure turn, then card vs CPU at the small config
+    fcfg = SlamConfig(use_fmt=True)
+    turn_gt, turn = render_turn(fcfg, 6, seed=3)
+    doh_cuda.launches = 0
+    fouts, fms, fmt_launches, fprof = fmt_turn(torch, fcfg, turn, "cuda")
+    rot = [float(o.fmt_rotation) for o in fouts]
+    head_err = abs((float(fouts[-1].pose[2]) - turn_gt[-1, 2] + np.pi) % (2 * np.pi) - np.pi)
+    finl = [int(o.n_inliers) for o in fouts]
+    log(f"fmt SlamConfig(use_fmt=True), turn {FMT_TURN} rad/frame: fmt_rotation {rot}, "
+        f"scale {[round(float(o.fmt_scale), 5) for o in fouts]}, inliers {finl}, final "
+        f"heading error {head_err:.4f} rad, {statistics.median(fms):.2f} ms/frame median, "
+        f"doh launches {fmt_launches}")
+    log_profile("fmt step profiled", *fprof)
+    if not (max(abs(r + FMT_TURN) for r in rot) < FMT_ROT_TOL and head_err < 0.05
+            and min(finl) >= 15 and fmt_launches >= 1):
+        raise AssertionError("FMT at full width: rotation, heading, inliers or launches off")
+    _, sturn = render_turn(small, 5, seed=4)
+    sres = {dev: fmt_turn(torch, SlamConfig(use_fmt=True, **SMALL), sturn, dev)[0]
+            for dev in ("cuda", "cpu")}
+    dpose = max(float((a.pose.cpu() - b.pose).abs().max()) for a, b in zip(*sres.values()))
+    drot = max(abs(float(a.fmt_rotation) - float(b.fmt_rotation))
+               for a, b in zip(*sres.values()))
+    fflags = all(getattr(a, k).item() == getattr(b, k).item() for a, b in zip(*sres.values())
+                 for k in ("is_keyframe", "did_retrack", "n_inliers"))
+    log(f"fmt small config, card vs CPU: flags equal {fflags}, max pose diff {dpose:.2e} m, "
+        f"max fmt_rotation diff {drot:.2e} rad")
+    if not (fflags and dpose <= 1e-3 and drot <= FMT_CARD_CPU_ROT):
+        raise AssertionError("card and CPU FMT steps disagree at the small config")
+
+    doh_row["launches"] = launches + driver_launches + fmt_launches
+    doh_row["launches_by_path"] = {"step": launches, "driver": driver_launches,
+                                   "fmt_step": fmt_launches}
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [doh_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

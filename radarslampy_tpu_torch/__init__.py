@@ -1,10 +1,11 @@
 """radarslampy_tpu_torch — the PyTorch/CUDA port of radarslampy_tpu.
 
-The per-frame odometry step (`models.frontend.init_state` / `slam_step` /
-`slam_step_chunk`) runs on an NVIDIA GPU; its one TPU kernel, the DoH scale
-space, is a hand-written CUDA kernel (`csrc/doh.cu`, bound in
-`ops/cuda/doh_cuda.py`).  The package imports torch, numpy and the standard
-library only — never JAX and never `radarslampy_tpu`.
+The driver (`RadarSlamSystem(...).run()`, `python -m radarslampy_tpu_torch`)
+and the per-frame odometry step (`models.frontend.init_state` / `slam_step` /
+`slam_step_chunk`) run on an NVIDIA GPU; the step's one TPU kernel, the DoH
+scale space, is a hand-written CUDA kernel (`csrc/doh.cu`, bound in
+`ops/cuda/doh_cuda.py`).  The package imports torch, numpy, the standard
+library and (to decode PNGs) PIL only — never JAX and never `radarslampy_tpu`.
 
 Precision: TF32 is switched off for matmuls and cuDNN convolutions on import.
 The determinant of Hessian subtracts near-equal products and scales them by
@@ -38,5 +39,9 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["SlamConfig", "DEFAULT_CONFIG", "resolve_device"]
+# Imported after resolve_device: models.frontend, which the driver imports,
+# takes resolve_device from this package.
+from radarslampy_tpu_torch.models.system import RadarSlamSystem, RunResult  # noqa: E402
+
+__all__ = ["SlamConfig", "DEFAULT_CONFIG", "RadarSlamSystem", "RunResult", "resolve_device"]
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.models.frontend import FrameMaps, MapState, SlamState
 from radarslampy_tpu_torch.ops.cuda.doh_cuda import filters_from_taps
-from radarslampy_tpu_torch.ops.grid import warp_maps_from_taps
+from radarslampy_tpu_torch.ops.grid import LogPolarMap, warp_maps_from_taps
 
 
 def _routed_to_pixel_taps(routed, S: int):
@@ -59,21 +59,24 @@ def _taps_from_toeplitz(mats, sigmas):
     return taps
 
 
+def _tensor(x, device, dtype=None):
+    arr = np.array(np.asarray(x))  # a writable host copy
+    t = torch.from_numpy(arr)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
 def frame_maps_from_numpy(maps, cfg: SlamConfig, device="cuda") -> FrameMaps:
-    """The JAX `FrameMaps` (fields `routed`, `doh`) as the port's `FrameMaps`."""
+    """The JAX `FrameMaps` (fields `routed`, `doh`, and of `grid` the
+    log-polar map) as the port's `FrameMaps`."""
     dev = resolve_device(device)
     a0, r0, fa, fr, inside = _routed_to_pixel_taps(maps.routed, cfg.cart_size)
     return FrameMaps(
         warp=warp_maps_from_taps(a0, r0, fa, fr, inside, cfg, dev),
         doh=filters_from_taps(_taps_from_toeplitz(maps.doh, cfg.doh_sigmas),
                               cfg.doh_sigmas, dev),
+        logpolar=LogPolarMap(logpolar_rng=_tensor(maps.grid.logpolar_rng, dev),
+                             log_base=float(maps.grid.log_base)),
     )
-
-
-def _tensor(x, device, dtype=None):
-    arr = np.array(np.asarray(x))  # a writable host copy
-    t = torch.from_numpy(arr)
-    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:

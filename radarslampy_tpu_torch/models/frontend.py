@@ -3,10 +3,11 @@
 Counterpart of `radarslampy_tpu/models/frontend.py`.  One radar frame goes
 through
 
-    dequantise -> polar warp -> KLT -> consistency peeling -> Procrustes ->
-    motion-distortion LM -> constant-velocity coast gate -> keyframe/retrack
-    decision -> (keyframe: DoH + ANMS re-detection on retrack, feature merge,
-    point cloud, scan context, map write)
+    dequantise -> polar warp -> (use_fmt: FMT rotation seeding KLT) -> KLT ->
+    consistency peeling -> Procrustes -> motion-distortion LM ->
+    constant-velocity coast gate -> keyframe/retrack decision -> (keyframe:
+    DoH + ANMS re-detection on retrack, feature merge, point cloud, scan
+    context, map write)
 
 with the JAX package's fixed shapes and masks and the same state containers.
 Differences in form, not in result:
@@ -17,7 +18,10 @@ Differences in form, not in result:
     `lax.scan`).
   * State updates are functional: the map is copied on a keyframe write
     (index_copy), so a state passed in is never modified.
-  * FMT (`use_fmt`) is not ported yet; the step raises if it is enabled.
+
+Each stage runs inside a `torch.profiler.record_function` range named
+"slam_step.<stage>" (the whole step: "slam_step"), so a profiler trace reads
+each stage's host and device time from the step itself.
 
 Conventions: the Cartesian image has the sensor at its centre; local metric
 coords are (px - centre) * cart_resolution_m; a pose [x, y, theta] maps local
@@ -30,6 +34,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import SlamConfig
@@ -37,7 +42,9 @@ from radarslampy_tpu_torch.models.placerecog import scan_context
 from radarslampy_tpu_torch.ops import geometry as geo
 from radarslampy_tpu_torch.ops.cuda.doh_cuda import DohFilters, build_doh_filters
 from radarslampy_tpu_torch.ops.features import get_features, merge_features, top_k_stable
-from radarslampy_tpu_torch.ops.grid import WarpMaps, build_warp_maps, warp_polar_to_cartesian
+from radarslampy_tpu_torch.ops.fmt import estimate_rotation_fmt
+from radarslampy_tpu_torch.ops.grid import (LogPolarMap, WarpMaps, build_logpolar_map,
+                                            build_warp_maps, warp_polar_to_cartesian)
 from radarslampy_tpu_torch.ops.motion import solve_motion, undistort
 from radarslampy_tpu_torch.ops.pointcloud import extract_pointcloud
 from radarslampy_tpu_torch.ops.robust import reject_outliers
@@ -47,14 +54,16 @@ from radarslampy_tpu_torch.ops.tracking import track_klt
 class FrameMaps(NamedTuple):
     """Static per-config data of the step, on its device."""
 
-    warp: WarpMaps    # polar -> Cartesian sample points
-    doh: DohFilters   # Gaussian taps of the DoH scale space
+    warp: WarpMaps          # polar -> Cartesian sample points
+    doh: DohFilters         # Gaussian taps of the DoH scale space
+    logpolar: LogPolarMap   # log-polar range map of FMT
 
 
 def build_frame_maps(cfg: SlamConfig, device="cuda") -> FrameMaps:
     dev = resolve_device(device)
     return FrameMaps(warp=build_warp_maps(cfg, dev),
-                     doh=build_doh_filters(cfg.doh_sigmas, dev))
+                     doh=build_doh_filters(cfg.doh_sigmas, dev),
+                     logpolar=build_logpolar_map(cfg, dev))
 
 
 class MapState(NamedTuple):
@@ -95,9 +104,9 @@ class StepOutput(NamedTuple):
     n_inliers: torch.Tensor     # int32 features surviving outlier rejection
     is_keyframe: torch.Tensor   # bool
     did_retrack: torch.Tensor   # bool
-    fmt_rotation: torch.Tensor  # float (0: FMT off)
+    fmt_rotation: torch.Tensor  # float FMT rotation estimate (0: FMT off)
     fit_ok: torch.Tensor        # bool
-    fmt_scale: torch.Tensor     # float (1: FMT off)
+    fmt_scale: torch.Tensor     # float FMT log-polar scale estimate (1: FMT off)
 
 
 def _px_to_metric(px, cfg: SlamConfig):
@@ -224,71 +233,97 @@ def init_state(polar0, init_pose, maps: FrameMaps, cfg: SlamConfig) -> SlamState
 
 def slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig):
     """One radar frame through the pipeline -> (new state, StepOutput)."""
-    if cfg.use_fmt:
-        raise NotImplementedError("use_fmt=True: FMT is not ported yet")
-    dev = state.pose.device
-    polar = _dequantize_polar(torch.as_tensor(polar, device=dev))
-    cart = warp_polar_to_cartesian(polar, maps.warp)
+    with record_function("slam_step"):
+        return _slam_step(state, polar, maps, cfg)
 
-    # ---- KLT tracking ----
-    tr = track_klt(state.prev_cart, cart, state.feat_px, state.feat_mask, cfg)
-    n_tracked = torch.sum(tr.status.to(torch.int32))
+
+def _slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig):
+    dev = state.pose.device
+    with record_function("slam_step.warp"):
+        polar = _dequantize_polar(torch.as_tensor(polar, device=dev))
+        cart = warp_polar_to_cartesian(polar, maps.warp)
+
+    # ---- FMT rotation + log-polar scale; the rotation about the sensor
+    # pixel seeds KLT as an initial flow, so turns whose pixel motion exceeds
+    # the pyramid's reach stay tracked ----
+    init_flow = None
+    if cfg.use_fmt:
+        with record_function("slam_step.fmt"):
+            fmt = estimate_rotation_fmt(state.prev_polar, polar, cfg, grid=maps.logpolar)
+            fmt_rot, fmt_scale = fmt.rot_rad, fmt.scale
+            sR, cR = torch.sin(fmt_rot), torch.cos(fmt_rot)
+            d = state.feat_px - cfg.cart_center
+            pred = torch.stack([cR * d[:, 0] - sR * d[:, 1],
+                                sR * d[:, 0] + cR * d[:, 1]], dim=-1) + cfg.cart_center
+            init_flow = pred - state.feat_px
+    else:
+        fmt_rot = torch.zeros((), dtype=cart.dtype, device=dev)
+        fmt_scale = torch.ones((), dtype=cart.dtype, device=dev)
+
+    with record_function("slam_step.klt"):
+        tr = track_klt(state.prev_cart, cart, state.feat_px, state.feat_mask, cfg,
+                       init_flow=init_flow)
+        n_tracked = torch.sum(tr.status.to(torch.int32))
 
     # ---- consistency peeling on velocity-undistorted points ----
-    prev_local = _px_to_metric(state.feat_px, cfg)
-    curr_local = _px_to_metric(tr.coords, cfg)
-    prev_und = undistort(state.velocity, prev_local, cfg.scan_period_s)
-    curr_und = undistort(state.velocity, curr_local, cfg.scan_period_s)
-    rej = reject_outliers(prev_und / cfg.cart_resolution_m,
-                          curr_und / cfg.cart_resolution_m, tr.status, cfg)
-    live = rej.inlier_mask
-    n_inliers = rej.n_inliers
+    with record_function("slam_step.peeling"):
+        prev_local = _px_to_metric(state.feat_px, cfg)
+        curr_local = _px_to_metric(tr.coords, cfg)
+        prev_und = undistort(state.velocity, prev_local, cfg.scan_period_s)
+        curr_und = undistort(state.velocity, curr_local, cfg.scan_period_s)
+        rej = reject_outliers(prev_und / cfg.cart_resolution_m,
+                              curr_und / cfg.cart_resolution_m, tr.status, cfg)
+        live = rej.inlier_mask
+        n_inliers = rej.n_inliers
 
-    # ---- rigid fit on sensor-centred metric coords ----
-    R, h, fit_ok = geo.procrustes_masked(prev_und, curr_und, live.to(cart.dtype))
-    dth = torch.atan2(R[1, 0], R[0, 0])
-    s0, c0 = torch.sin(state.pose[2]), torch.cos(state.pose[2])
-    pose_init = torch.stack([state.pose[0] + c0 * h[0] - s0 * h[1],
-                             state.pose[1] + s0 * h[0] + c0 * h[1],
-                             state.pose[2] + dth])
+    with record_function("slam_step.lm"):
+        # ---- rigid fit on sensor-centred metric coords ----
+        R, h, fit_ok = geo.procrustes_masked(prev_und, curr_und, live.to(cart.dtype))
+        dth = torch.atan2(R[1, 0], R[0, 0])
+        s0, c0 = torch.sin(state.pose[2]), torch.cos(state.pose[2])
+        pose_init = torch.stack([state.pose[0] + c0 * h[0] - s0 * h[1],
+                                 state.pose[1] + s0 * h[0] + c0 * h[1],
+                                 state.pose[2] + dth])
 
-    # ---- motion-distortion LM ----
-    sol = solve_motion(state.pose, state.feat_world, curr_local, pose_init, live, cfg)
-    use_sol = sol.ok & fit_ok
-    pose_meas = torch.where(use_sol, sol.pose, pose_init)
-    vel_meas = torch.where(use_sol, sol.velocity, state.velocity)
+        # ---- motion-distortion LM ----
+        sol = solve_motion(state.pose, state.feat_world, curr_local, pose_init, live, cfg)
+        use_sol = sol.ok & fit_ok
+        pose_meas = torch.where(use_sol, sol.pose, pose_init)
+        vel_meas = torch.where(use_sol, sol.velocity, state.velocity)
 
-    # ---- degenerate-fit gate: coast on constant velocity ----
-    Tp = cfg.scan_period_s
-    v = state.velocity
-    pose_cv = torch.stack([state.pose[0] + (c0 * v[0] - s0 * v[1]) * Tp,
-                           state.pose[1] + (s0 * v[0] + c0 * v[1]) * Tp,
-                           state.pose[2] + v[2] * Tp])
-    confident = n_inliers >= cfg.min_inliers_accept
-    pose = torch.where(confident, pose_meas, pose_cv)
-    velocity = torch.where(confident, vel_meas, state.velocity)
-    fit_ok = fit_ok & confident
+        # ---- degenerate-fit gate: coast on constant velocity ----
+        Tp = cfg.scan_period_s
+        v = state.velocity
+        pose_cv = torch.stack([state.pose[0] + (c0 * v[0] - s0 * v[1]) * Tp,
+                               state.pose[1] + (s0 * v[0] + c0 * v[1]) * Tp,
+                               state.pose[2] + v[2] * Tp])
+        confident = n_inliers >= cfg.min_inliers_accept
+        pose = torch.where(confident, pose_meas, pose_cv)
+        velocity = torch.where(confident, vel_meas, state.velocity)
+        fit_ok = fit_ok & confident
 
     # ---- keyframe decision (taken on the host: one sync) ----
-    retrack_t = n_inliers <= cfg.n_features_before_retrack
-    dth_kf = torch.abs(geo.wrap_angle(pose[2] - state.kf_pose[2]))
-    dtrans2 = torch.sum((pose[:2] - state.kf_pose[:2]) ** 2)
-    kf_good = (dth_kf >= cfg.kf_rot_threshold_rad) | (dtrans2 >= cfg.kf_trans_threshold_m**2)
-    make_kf_t = retrack_t | kf_good
-    make_kf, retrack = (bool(b) for b in torch.stack([make_kf_t, retrack_t]).tolist())
+    with record_function("slam_step.decision"):
+        retrack_t = n_inliers <= cfg.n_features_before_retrack
+        dth_kf = torch.abs(geo.wrap_angle(pose[2] - state.kf_pose[2]))
+        dtrans2 = torch.sum((pose[:2] - state.kf_pose[:2]) ** 2)
+        kf_good = (dth_kf >= cfg.kf_rot_threshold_rad) | (dtrans2 >= cfg.kf_trans_threshold_m**2)
+        make_kf_t = retrack_t | kf_good
+        make_kf, retrack = (bool(b) for b in torch.stack([make_kf_t, retrack_t]).tolist())
 
     frame_idx = (state.frame_idx + 1).to(torch.int32)
     if make_kf:
-        coords, mask = tr.coords, live
-        if retrack:
-            coords, mask = merge_features(coords, mask, get_features(cart, cfg, maps.doh))
-        ids, next_id = assign_new_ids(live, mask, state.feat_id, state.next_id)
-        feat_local, feat_world = _features_to_world(coords, mask, pose, velocity, cfg)
-        pc_pts, pc_ok = keyframe_pointcloud(polar, velocity, cfg)
-        new_map = _write_keyframe(state.map, pose, feat_world, feat_local, ids, mask,
-                                  velocity, scan_context(polar, cfg), pc_pts, pc_ok,
-                                  frame_idx)
-        kf_pose = pose
+        with record_function("slam_step.keyframe"):
+            coords, mask = tr.coords, live
+            if retrack:
+                coords, mask = merge_features(coords, mask, get_features(cart, cfg, maps.doh))
+            ids, next_id = assign_new_ids(live, mask, state.feat_id, state.next_id)
+            feat_local, feat_world = _features_to_world(coords, mask, pose, velocity, cfg)
+            pc_pts, pc_ok = keyframe_pointcloud(polar, velocity, cfg)
+            new_map = _write_keyframe(state.map, pose, feat_world, feat_local, ids, mask,
+                                      velocity, scan_context(polar, cfg), pc_pts, pc_ok,
+                                      frame_idx)
+            kf_pose = pose
     else:
         coords, mask = tr.coords, live
         ids, next_id = state.feat_id, state.next_id
@@ -300,9 +335,7 @@ def slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig):
                           frame_idx=frame_idx)
     out = StepOutput(pose=pose, velocity=velocity, n_tracked=n_tracked,
                      n_inliers=n_inliers, is_keyframe=make_kf_t, did_retrack=retrack_t,
-                     fmt_rotation=torch.zeros((), dtype=cart.dtype, device=dev),
-                     fit_ok=fit_ok,
-                     fmt_scale=torch.ones((), dtype=cart.dtype, device=dev))
+                     fmt_rotation=fmt_rot, fit_ok=fit_ok, fmt_scale=fmt_scale)
     return new_state, out
 
 

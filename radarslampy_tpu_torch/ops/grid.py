@@ -1,8 +1,8 @@
-"""Polar -> Cartesian radar resampling as bilinear gathers on tensors.
+"""Polar -> Cartesian and polar -> log-polar radar resampling as gathers.
 
 Counterpart of `radarslampy_tpu/ops/grid.py` (the naive warp and its float32
-maps, plus `bilinear_sample_image`) and of `radarslampy_tpu/ops/routed_warp.py`
-(the warp the SLAM step uses).
+maps, the log-polar resample that feeds FMT, and `bilinear_sample_image`) and
+of `radarslampy_tpu/ops/routed_warp.py` (the warp the SLAM step uses).
 
 The JAX step warps through `routed_polar_to_cartesian`, whose octant routing
 exists only to put the TPU's gathers on their fast path; it computes the same
@@ -34,6 +34,14 @@ class GridMaps(NamedTuple):
     cart_az: torch.Tensor       # [S, S] fractional polar row per cart pixel
     cart_rng: torch.Tensor      # [S, S] fractional range bin per cart pixel
     cart_valid: torch.Tensor    # [S, S] bool, inside max range
+
+
+class LogPolarMap(NamedTuple):
+    """The log-polar resample's range map (grid.py's `logpolar_rng` and
+    `log_base`), the one map FMT reads."""
+
+    logpolar_rng: torch.Tensor  # [W] fractional range bin per log-polar column
+    log_base: float             # log-polar base: column w samples bin base**w
 
 
 class WarpMaps(NamedTuple):
@@ -73,6 +81,18 @@ def build_grid_maps(cfg: SlamConfig, device="cuda") -> GridMaps:
     )
 
 
+def build_logpolar_map(cfg: SlamConfig, device="cuda") -> LogPolarMap:
+    """The log-polar range map over the clipped range, as the JAX
+    `build_grid_maps` builds it: column w samples range bin base**w."""
+    W = cfg.polar_width_padded
+    log_base = float(cfg.clipped_range_bins - 1) ** (1.0 / (W - 1))
+    lp_rng = log_base ** np.arange(W, dtype=np.float32)
+    return LogPolarMap(
+        logpolar_rng=torch.as_tensor(lp_rng.astype(np.float32), device=resolve_device(device)),
+        log_base=log_base,
+    )
+
+
 def _bilinear_polar_sample(polar, az, rng, *, num_azimuths, num_bins):
     """Bilinear sample of polar[az_row, range_col]: azimuth wraps, range clamps."""
     a0 = torch.floor(az)
@@ -102,6 +122,19 @@ def polar_to_cartesian(polar, maps: GridMaps, cfg: SlamConfig):
         num_azimuths=cfg.num_azimuths, num_bins=cfg.clipped_range_bins,
     )
     return torch.where(maps.cart_valid, out, torch.zeros_like(out))
+
+
+def polar_to_logpolar(polar, maps: LogPolarMap, cfg: SlamConfig):
+    """Resample a polar scan [A, Wpad] to log-polar [A, Wpad] along range
+    alone: the azimuth rows stay, columns are log-spaced range bins
+    (1-D linear interpolation)."""
+    rng = maps.logpolar_rng
+    r0 = torch.floor(rng)
+    fr = rng - r0
+    bins = cfg.clipped_range_bins
+    r0i = torch.clamp(r0.to(torch.int64), 0, bins - 1)
+    r1i = torch.clamp(r0i + 1, 0, bins - 1)
+    return polar[..., r0i] * (1 - fr) + polar[..., r1i] * fr
 
 
 def bilinear_sample_image(img, xy):

@@ -70,7 +70,7 @@ def test_device_resolution():
             build_frame_maps(SlamConfig(cart_size=64, cart_downsample=64))
 
 
-@pytest.mark.parametrize("builder", ["grid", "warp", "doh"])
+@pytest.mark.parametrize("builder", ["grid", "logpolar", "warp", "doh"])
 def test_map_builders_default_to_cuda(builder):
     """The public map builders default to the card, as the entry points do:
     a caller who does not ask for the CPU never gets CPU tensors silently."""
@@ -79,6 +79,7 @@ def test_map_builders_default_to_cuda(builder):
 
     cfg = SlamConfig(cart_size=64, cart_downsample=64)
     build = {"grid": lambda **kw: grid.build_grid_maps(cfg, **kw),
+             "logpolar": lambda **kw: grid.build_logpolar_map(cfg, **kw),
              "warp": lambda **kw: grid.build_warp_maps(cfg, **kw),
              "doh": lambda **kw: doh_cuda.build_doh_filters(cfg.doh_sigmas, **kw)}[builder]
     assert all(t.device.type == "cpu" for t in build(device="cpu")

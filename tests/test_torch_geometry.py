@@ -124,3 +124,5 @@ def test_frame_maps_carried_from_jax_equal_the_ports_own():
     assert torch.equal(own.doh.taps, carried.doh.taps)
     assert own.doh.radii == carried.doh.radii
     assert own.doh.scales == carried.doh.scales
+    assert torch.equal(own.logpolar.logpolar_rng, carried.logpolar.logpolar_rng)
+    assert own.logpolar.log_base == carried.logpolar.log_base
