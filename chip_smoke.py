@@ -31,7 +31,23 @@ Phases, one line each (elapsed seconds in brackets):
      give each stage's host and device time and the step's device idle share;
   6. FMT: `SlamConfig(use_fmt=True)` at full width on a pure turn, its
      rotation against the rendered turn, one FMT step profiled; then the
-     FMT step at a small config on the card and on the CPU, which must agree.
+     FMT step at a small config on the card and on the CPU, which must agree;
+  7. the back-end: (a) `run(optimize=True, ba=True, backend_every=24)` at
+     `SlamConfig()` over 49 frames of a rendered circle that returns to its
+     start (40 frames a turn, 2.2 m chords), fed through `frame_source`: at
+     least one loop closed online and one post hoc, the keyframe error
+     against GT of the map, the pose graph and BA, fps, the post-hoc pass
+     timed alone on the host, DoH launches; a second run equal to the first
+     bit for bit on every RunResult array and state leaf; (b) the solvers on
+     a synthetic map in `SlamConfig()`'s shapes (capacity 4096, K 256, P 512,
+     16 x 80 descriptors) with 1,100 live keyframes and 12 planted revisits:
+     `close_loops` ("both"), the pose graph ("auto": PCG at 1,280 rows), BA
+     ("auto": PCG at 1,100 poses) and two online passes over the map grown to
+     600 and then 1,100 keyframes, each timed (synchronised host ms) with its
+     candidates, loops, CG sweeps and mean keyframe error before and after;
+     (c) `close_loops`, the dense pose graph and dense BA on a small map on
+     the card and on the CPU: candidates, loop edges and `ok` flags equal,
+     poses within the CPU parity tests' bounds.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -393,6 +409,290 @@ def range_overhead_us():
     return (time.perf_counter() - t) / n * 1e6
 
 
+# Phase 7 (a): a circle of LOOP_PER_TURN frames a turn, LOOP_CHORD m chords
+# (every frame a keyframe, clear of the 2.0 m threshold), LOOP_N frames, so
+# keyframes 40-48 revisit 0-8; the online pass runs every LOOP_EVERY steps and
+# its second run (step 48) closes loops.
+LOOP_PER_TURN, LOOP_CHORD, LOOP_N, LOOP_EVERY = 40, 2.2, 49, 24
+# Phase 7 (b): the synthetic map (SlamConfig() shapes) and its two growth
+# stages; the pose graph pads 1100 live keyframes to 1280 rows and BA packs
+# 1100 poses, so "auto" takes PCG for both.
+SCALE_LIVE, SCALE_STAGE = 1100, 600
+# Card against CPU (phase 7 (c)): the bounds of the CPU parity tests
+# (tests/test_torch_posegraph.py, tests/test_torch_ba.py)
+PG_M, PG_RAD, BA_M, BA_RAD = 1e-3, 1e-4, 5e-3, 5e-4
+
+
+def render_loop(cfg, seed):
+    """Scans of the phase-7 circle, as u8, and its poses."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.sim import fakedata as fd
+
+    radius = LOOP_CHORD / (2 * np.sin(np.pi / LOOP_PER_TURN))
+    th = np.arange(LOOP_N) * 2 * np.pi / LOOP_PER_TURN
+    poses = np.stack([radius * np.sin(th), radius * (1 - np.cos(th)), th], 1)
+    rng = np.random.default_rng(seed)
+    return poses, np.stack([
+        np.clip(np.round(s * 255.0), 0, 255).astype(np.uint8)
+        for _, s in fd.render_sequence(rng, poses, cfg, n_landmarks=1200,
+                                       with_distortion=True, noise=0.01)])
+
+
+def kf_error(kf_poses, gt_kf):
+    """Mean keyframe position error (m) against the ground truth."""
+    import numpy as np
+
+    return float(np.linalg.norm(np.asarray(kf_poses)[:, :2] - gt_kf[:, :2], axis=1).mean())
+
+
+def run_arrays(res):
+    """Every array and number of a RunResult, in a fixed order."""
+    import numpy as np
+
+    out = [np.asarray(a) for a in res.trajectory.as_arrays()]
+    out += [np.asarray(getattr(res, f)) for f in ("kf_poses_optimized", "kf_poses_ba",
+                                                  "landmarks_ba")]
+    out += [np.asarray([res.posegraph_cost, res.ba_cost, res.n_loop_closures,
+                        res.n_online_loops, res.n_keyframes, res.frames])]
+    return out + [x.cpu().numpy() for x in leaves(res.final_state)]
+
+
+def backend_driver(torch, cfg, dev, tmp):
+    """Phase 7 (a) on `dev`: the driver with the back-end on, over the
+    rendered loop, twice; returns what main() checks and prints."""
+    import numpy as np
+
+    from radarslampy_tpu_torch import RadarSlamSystem
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.sim import oxford_files
+
+    gt, frames = render_loop(cfg, seed=5)
+    stamps = oxford_files.write_sequence(tmp, "loop", gt, cfg)
+    source = [Frame(f, int(t)) for f, t in zip(frames, stamps)]
+    kw = dict(optimize=True, ba=True, backend_every=LOOP_EVERY)
+    system = RadarSlamSystem("loop", tmp, cfg, device=dev)
+    doh_cuda.launches = 0
+    t = time.time()
+    first = system.run(frame_source=source, **kw)
+    wall_s = time.time() - t
+    launches = doh_cuda.launches
+    second = RadarSlamSystem("loop", tmp, cfg, device=dev).run(frame_source=source, **kw)
+    # the post-hoc pass alone, timed, on the final state of the first run
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = system.optimize_map(first.final_state, ba=True)
+    torch.cuda.synchronize()
+    posthoc_ms = (time.perf_counter() - t) * 1e3
+    M = first.n_keyframes
+    gt_kf = gt[first.final_state.map.frame_ids[:M].cpu().numpy()]
+    errors = (kf_error(first.final_state.map.poses[:M].cpu().numpy(), gt_kf),
+              kf_error(first.kf_poses_optimized, gt_kf), kf_error(first.kf_poses_ba, gt_kf))
+    same = all(np.array_equal(a, b) for a, b in zip(run_arrays(first), run_arrays(second)))
+    same_posthoc = (np.array_equal(again[0], first.kf_poses_optimized)
+                    and np.array_equal(again[3], first.kf_poses_ba)
+                    and again[1] == first.n_loop_closures)
+    return dict(res=first, wall_s=wall_s, launches=launches, posthoc_ms=posthoc_ms,
+                errors=errors, same=same, same_posthoc=same_posthoc)
+
+
+def revisit_map(torch, cfg, n_base, n_planted, dev, seed, gap=40, drift_m=4.0):
+    """A synthetic map in `cfg`'s shapes (capacity, K, P, descriptors): a 2 m
+    random walk over `n_base` keyframes with `n_planted` revisits of earlier
+    places spread over it, drifted estimates, and per keyframe the sensor-frame
+    view of its K/2 nearest world points (their indices as landmark ids), its
+    P/2 nearest as the point cloud, and a ring x sector occupancy descriptor.
+    Returns (MapState on `dev`, ground-truth keyframe poses)."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models.frontend import MapState
+
+    rng = np.random.default_rng(seed)
+    th = np.cumsum(rng.normal(0, 0.08, n_base))
+    xy = np.cumsum(np.stack([2.0 * np.cos(th), 2.0 * np.sin(th)], 1), axis=0)
+    walk = np.concatenate([xy, th[:, None]], axis=1)
+    every = n_base // (n_planted + 1)
+    parts, src = [], 0
+    for k in range(n_planted):
+        j_pos = (k + 1) * every
+        parts.append(walk[src:j_pos])
+        p = walk[max(0, j_pos - gap - int(rng.integers(5, 60)))].copy()
+        p[:2] += rng.normal(0, 0.5, 2)
+        p[2] += rng.normal(0, 0.3)
+        parts.append(p[None])
+        src = j_pos
+    parts.append(walk[src:])
+    gt = np.concatenate(parts)
+    M = len(gt)
+    est = gt + np.linspace(0, drift_m, M)[:, None] * np.array([1.0, 0.4, 0.0])
+
+    cap, K, P = cfg.max_keyframes, cfg.k_max, cfg.pc_points_per_kf
+    R, S = cfg.sc_rings, cfg.sc_sectors
+    lo, hi = gt[:, :2].min(0) - 50, gt[:, :2].max(0) + 50
+    world = rng.uniform(lo, hi, (int(2.5 * M) + 2000, 2))
+    f = dict(poses=np.zeros((cap, 3), np.float32), feat_world=np.zeros((cap, K, 2), np.float32),
+             feat_local=np.zeros((cap, K, 2), np.float32),
+             feat_ids=np.full((cap, K), -1, np.int32), feat_mask=np.zeros((cap, K), bool),
+             velocities=np.zeros((cap, 3), np.float32),
+             descriptors=np.zeros((cap, R, S), np.float32),
+             pc_local=np.zeros((cap, P, 2), np.float32), pc_mask=np.zeros((cap, P), bool),
+             frame_ids=np.full(cap, -1, np.int32))
+    f["poses"][:M] = est
+    f["frame_ids"][:M] = np.arange(M)
+    for m in range(M):
+        near = np.argsort(np.linalg.norm(world - gt[m, :2], axis=1))[:max(K, P) // 2]
+        c, s = np.cos(gt[m, 2]), np.sin(gt[m, 2])
+        d = world[near] - gt[m, :2]
+        local = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]], 1)
+        f["feat_local"][m, :K // 2] = local[:K // 2]
+        f["feat_mask"][m, :K // 2] = True
+        f["feat_ids"][m, :K // 2] = near[:K // 2]
+        f["pc_local"][m, :P // 2] = local[:P // 2]
+        f["pc_mask"][m, :P // 2] = True
+        ce, se = np.cos(est[m, 2]), np.sin(est[m, 2])
+        lk = local[:K // 2]
+        f["feat_world"][m, :K // 2] = np.stack([ce * lk[:, 0] - se * lk[:, 1],
+                                                se * lk[:, 0] + ce * lk[:, 1]], 1) + est[m, :2]
+        r = np.linalg.norm(local, axis=1)
+        a = np.mod(np.arctan2(local[:, 1], local[:, 0]), 2 * np.pi)
+        keep = r < 60.0
+        desc = np.zeros((R, S), np.float32)
+        np.add.at(desc, ((r[keep] / 60.0 * R).astype(int), (a[keep] / (2 * np.pi) * S)
+                         .astype(int) % S), 1.0)
+        f["descriptors"][m] = desc / max(desc.max(), 1.0)
+    tensors = {k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+    return MapState(cursor=torch.tensor(M, dtype=torch.int32, device=dev), **tensors), gt
+
+
+def state_around(torch, m):
+    """A SlamState holding map `m`, its running pose at the last keyframe."""
+    from radarslampy_tpu_torch.models.frontend import SlamState
+
+    dev, K = m.poses.device, m.feat_local.shape[1]
+    n = int(m.cursor)
+    z = torch.zeros
+    return SlamState(pose=m.poses[n - 1].clone(), velocity=z(3, device=dev),
+                     prev_polar=z((4, 4), device=dev), prev_cart=z((4, 4), device=dev),
+                     feat_px=z((K, 2), device=dev),
+                     feat_mask=z(K, dtype=torch.bool, device=dev),
+                     feat_id=torch.full((K,), -1, dtype=torch.int32, device=dev),
+                     next_id=torch.tensor(0, dtype=torch.int32, device=dev),
+                     feat_world=z((K, 2), device=dev), kf_pose=m.poses[n - 1].clone(), map=m,
+                     frame_idx=torch.tensor(n, dtype=torch.int32, device=dev))
+
+
+def timed(torch, fn):
+    """(fn(), synchronised host ms)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def solver_stages(torch, cfg, m, gt):
+    """Phase 7 (b): close_loops, the pose graph, BA and two online passes over
+    the map grown in two stages, each timed; returns one dict per stage."""
+    from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
+    from radarslampy_tpu_torch.models.loopclosure import (close_loops, incremental_backend,
+                                                          trim_map_state)
+    from radarslampy_tpu_torch.models.posegraph import optimize_pose_graph
+
+    M = int(m.cursor)
+    before = kf_error(m.poses[:M].cpu().numpy(), gt)
+    mt = trim_map_state(m)
+    stats = {}
+    (graph, matches), ms = timed(torch, lambda: close_loops(mt, cfg, method="both",
+                                                            stats=stats))
+    stages = [dict(stage="close_loops", ms=ms, candidates=stats["candidates"],
+                   loops=int(matches.ok.sum()), rows=mt.poses.shape[0])]
+    pg = {}
+    (poses, cost), ms = timed(torch, lambda: optimize_pose_graph(graph, cfg, stats=pg))
+    kf_pg = poses[:M].cpu().numpy()
+    stages.append(dict(stage="pose_graph", ms=ms, rows=graph.poses.shape[0],
+                       solver="pcg" if pg["cg_sweeps"] else "dense", cg_sweeps=pg["cg_sweeps"],
+                       cost=float(cost), err_before=before, err_after=kf_error(kf_pg, gt)))
+    problem, ms_pack = timed(torch, lambda: build_ba_problem(reseed_map(mt, kf_pg)))
+    ba = {}
+    (poses_b, lms, cost_b), ms = timed(torch, lambda: optimize_ba(problem, cfg, stats=ba))
+    stages.append(dict(stage="ba", ms=ms, pack_ms=ms_pack, poses=problem.poses.shape[0],
+                       landmarks=int(problem.lm_mask.sum()), observations=int(problem.obs_mask.sum()),
+                       solver="pcg" if ba["cg_sweeps"] else "dense", cg_sweeps=ba["cg_sweeps"],
+                       cost=float(cost_b), err_before=kf_error(kf_pg, gt),
+                       err_after=kf_error(poses_b[:M].cpu().numpy(), gt)))
+
+    # the online pass over the map as it grows: the first SCALE_STAGE keyframes,
+    # then all of them, carrying the back-end state
+    def prefix(n):
+        return m._replace(cursor=torch.tensor(n, dtype=torch.int32, device=m.poses.device),
+                          **{f: torch.where(_rows(torch, getattr(m, f), n), getattr(m, f),
+                                            torch.zeros_like(getattr(m, f)))
+                             for f in ("poses", "feat_world", "feat_local", "feat_mask",
+                                       "feat_ids", "descriptors", "pc_local", "pc_mask")})
+
+    state, bs = state_around(torch, prefix(SCALE_STAGE)), None
+    for n in (SCALE_STAGE, M):
+        if n > SCALE_STAGE:   # the later keyframes join the map the first pass re-anchored
+            grown = prefix(n)
+            state = state_around(torch, grown._replace(**{
+                f: torch.where(_rows(torch, getattr(grown, f), SCALE_STAGE),
+                               getattr(state.map, f), getattr(grown, f))
+                for f in ("poses", "feat_world")}))
+        err0 = kf_error(state.map.poses[:n].cpu().numpy(), gt[:n])
+        inc = {}
+        (state, n_new, cost, bs), ms = timed(
+            torch, lambda: incremental_backend(state, cfg, backend_state=bs, stats=inc))
+        stages.append(dict(stage=f"online_pass_{n}", ms=ms, candidates=inc["candidates"],
+                           loops=n_new, edges=len(bs.edges_ij), rows=1024 * -(-n // 1024),
+                           solver=("pcg" if inc.get("cg_sweeps") else "dense") if n_new else None,
+                           cg_sweeps=inc.get("cg_sweeps", 0), err_before=err0,
+                           err_after=kf_error(state.map.poses[:n].cpu().numpy(), gt[:n])))
+    return stages
+
+
+def _rows(torch, a, n):
+    """Mask [rows, 1, ...] of a's first n rows, broadcastable against a."""
+    idx = torch.arange(a.shape[0], device=a.device) < n
+    return idx.reshape((-1,) + (1,) * (a.ndim - 1))
+
+
+def backend_card_vs_cpu(torch, cfg):
+    """Phase 7 (c): close_loops, the dense pose graph and dense BA on a small
+    map, on the card and on the CPU."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
+    from radarslampy_tpu_torch.models.loopclosure import close_loops, trim_map_state
+    from radarslampy_tpu_torch.models.posegraph import optimize_pose_graph
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m, gt = revisit_map(torch, cfg, 140, 5, dev, seed=9, gap=20, drift_m=2.0)
+        mt = trim_map_state(m)
+        graph, matches = close_loops(mt, cfg, method="both")
+        M = int(m.cursor)
+        poses, cost = optimize_pose_graph(graph, cfg, method="dense")
+        kf_pg = poses[:M].cpu().numpy()
+        p = build_ba_problem(reseed_map(mt, kf_pg))
+        pb, lms, cb = optimize_ba(p, cfg, method="dense")
+        out[dev] = dict(ij=graph.edges_ij.cpu().numpy(), ok=matches.ok.cpu().numpy(),
+                        emask=graph.edge_mask.cpu().numpy(), pg=kf_pg,
+                        ba=pb[:M].cpu().numpy(), lms=lms.cpu().numpy(), gt=gt)
+    a, b = out["cuda"], out["cpu"]
+    d_pg = np.abs(a["pg"] - b["pg"]).max(0)
+    d_ba = np.abs(a["ba"] - b["ba"]).max(0)
+    d_lm = float(np.abs(a["lms"] - b["lms"]).max())
+    diff = dict(candidate_rows=int((a["ij"] != b["ij"]).any(1).sum()),
+                ok_flags=int((a["ok"] != b["ok"]).sum()),
+                edge_mask=int((a["emask"] != b["emask"]).sum()))
+    equal = not any(diff.values())
+    return dict(equal=equal, diff=diff, loops=int(a["ok"].sum()), d_pg=d_pg, d_ba=d_ba,
+                d_lm=d_lm,
+                ok=bool(equal and a["ok"].sum() >= 1 and max(d_pg[:2]) <= PG_M
+                        and d_pg[2] <= PG_RAD and max(d_ba[:2]) <= BA_M and d_ba[2] <= BA_RAD
+                        and d_lm <= BA_M))
+
+
 def main() -> int:
     import torch
 
@@ -621,9 +921,54 @@ def main() -> int:
     if not (fflags and dpose <= 1e-3 and drot <= FMT_CARD_CPU_ROT):
         raise AssertionError("card and CPU FMT steps disagree at the small config")
 
-    doh_row["launches"] = launches + driver_launches + fmt_launches
+    # 7. the back-end: (a) the driver with it on a closed loop at SlamConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        bk = backend_driver(torch, cfg, "cuda", tmp)
+    r = bk["res"]
+    log(f"backend driver: run(optimize, ba, backend_every={LOOP_EVERY}) over {r.frames} frames "
+        f"in {bk['wall_s']:.2f} s, fps {r.fps:.3f} on {card}; keyframes {r.n_keyframes}, online "
+        f"loops {r.n_online_loops}, post-hoc loops {r.n_loop_closures}, pose-graph cost "
+        f"{r.posegraph_cost:.6g}, BA cost {r.ba_cost:.6g} over {len(r.landmarks_ba)} landmarks; "
+        f"keyframe error against GT: map {bk['errors'][0]:.4f} m, pose graph "
+        f"{bk['errors'][1]:.4f} m, BA {bk['errors'][2]:.4f} m; post-hoc pass alone "
+        f"{bk['posthoc_ms']:.1f} ms (host, synchronised); doh launches {bk['launches']}")
+    log(f"backend driver: two runs equal bit for bit on every RunResult array: {bk['same']}; "
+        f"the post-hoc pass again equal: {bk['same_posthoc']}")
+    if not (bk["same"] and bk["same_posthoc"]):
+        raise AssertionError("the back-end driver is not deterministic on the card")
+    if not (r.n_online_loops >= 1 and r.n_loop_closures >= 1 and bk["launches"] >= 1
+            and all(np.isfinite(bk["errors"]))):
+        raise AssertionError("the back-end driver closed no loop online or post hoc, or "
+                             "launched no DoH kernel")
+
+    # (b) the solvers at scale, on a synthetic map in SlamConfig()'s shapes
+    t = time.time()
+    big, big_gt = revisit_map(torch, cfg, SCALE_LIVE - 12, 12, "cuda", seed=21)
+    log(f"scale map: {int(big.cursor)} live keyframes of {cfg.max_keyframes}, K {cfg.k_max}, "
+        f"P {cfg.pc_points_per_kf}, built in {time.time() - t:.1f} s")
+    stages = solver_stages(torch, cfg, big, big_gt)
+    for st in stages:
+        log("scale " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                                 for k, v in st.items()))
+    by = {st["stage"]: st for st in stages}
+    if not (by["close_loops"]["loops"] >= 1 and by["pose_graph"]["solver"] == "pcg"
+            and by["ba"]["solver"] == "pcg" and by["pose_graph"]["cg_sweeps"] > 0
+            and by[f"online_pass_{int(big.cursor)}"]["solver"] == "pcg"):
+        raise AssertionError(f"scale stages did not close loops or run both PCG solvers: {stages}")
+
+    # (c) the card against the CPU at a small config
+    cvc = backend_card_vs_cpu(torch, SlamConfig(**dict(SMALL, max_keyframes=256, k_max=64,
+                                                       pc_points_per_kf=64)))
+    log(f"backend small config, card vs CPU: candidates, loop edges and ok flags equal "
+        f"{cvc['equal']} ({cvc['loops']} loops; rows that differ {cvc['diff']}); max diff "
+        f"pose graph {cvc['d_pg'].tolist()}, "
+        f"BA {cvc['d_ba'].tolist()} (x, y m; theta rad), landmarks {cvc['d_lm']:.2e} m")
+    if not cvc["ok"]:
+        raise AssertionError("card and CPU back-ends disagree at the small config")
+
+    doh_row["launches"] = launches + driver_launches + fmt_launches + bk["launches"]
     doh_row["launches_by_path"] = {"step": launches, "driver": driver_launches,
-                                   "fmt_step": fmt_launches}
+                                   "fmt_step": fmt_launches, "backend_driver": bk["launches"]}
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [doh_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,12 +27,13 @@ def main(argv=None):
                          "plot and GPS overlay need viz/plots.py, not ported yet: "
                          "ROADMAP.md Queue 1, item 8)")
     ap.add_argument("--loop-closure", action="store_true",
-                    help="loop closure + pose graph at the end (not ported yet: raises)")
+                    help="loop closure + pose graph over the map at the end")
     ap.add_argument("--ba", action="store_true",
-                    help="bundle adjustment (not ported yet: raises)")
+                    help="bundle adjustment over the map at the end (after the "
+                         "pose graph when loops close)")
     ap.add_argument("--backend-every", type=int, default=0,
-                    help="frames between online loop-closure passes (not ported "
-                         "yet: a value other than 0 raises)")
+                    help="frames between online loop-closure + pose-graph passes "
+                         "fed back into the running state (0: none)")
     ap.add_argument("--viz-dir", default=None,
                     help="per-frame figures (not ported yet: raises)")
     ap.add_argument("--viz-every", type=int, default=3,
@@ -73,6 +74,15 @@ def main(argv=None):
         "fps": round(res.fps, 3),
         "rmse_vs_gt_m": round(res.rmse_vs_gt, 3) if res.rmse_vs_gt is not None else None,
     }
+    if args.backend_every:
+        summary["online_loops"] = res.n_online_loops
+    if args.loop_closure:
+        summary["loop_closures"] = res.n_loop_closures
+        if res.posegraph_cost is not None:
+            summary["posegraph_cost"] = res.posegraph_cost
+    if args.ba and res.ba_cost is not None:
+        summary["ba_cost"] = res.ba_cost
+        summary["ba_landmarks"] = int(len(res.landmarks_ba))
     print(json.dumps(summary))
 
     if args.out_dir:

@@ -1,11 +1,12 @@
-"""Carry the JAX package's step data across to the port.
+"""Carry the JAX package's step and back-end data across to the port.
 
-The SLAM step has no weights; what the JAX step and the port's step share is
-their per-config maps and their state.  These functions take the JAX
-package's `FrameMaps` and `SlamState` (any object with those fields whose
-arrays `np.asarray` can read: JAX arrays or numpy arrays) and give the port's
-containers on `device`, so both steps can be fed the identical state.
-Nothing here imports JAX.
+The SLAM step has no weights; what the JAX package and the port share is
+their per-config maps, their state and the back-end's problems.  These
+functions take the JAX package's `FrameMaps`, `SlamState`, `PoseGraph`,
+`BAProblem` and `BackendState` (any object with those fields whose arrays
+`np.asarray` can read: JAX arrays or numpy arrays) and give the port's
+containers on `device`, so both packages can be fed the identical input.
+Index arrays become int64 tensors.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ import torch
 
 from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import SlamConfig
+from radarslampy_tpu_torch.models.ba import BAProblem
 from radarslampy_tpu_torch.models.frontend import FrameMaps, MapState, SlamState
+from radarslampy_tpu_torch.models.loopclosure import BackendState
+from radarslampy_tpu_torch.models.posegraph import PoseGraph
 from radarslampy_tpu_torch.ops.cuda.doh_cuda import filters_from_taps
 from radarslampy_tpu_torch.ops.grid import LogPolarMap, warp_maps_from_taps
 
@@ -113,3 +117,35 @@ def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
         map=new_map,
         frame_idx=_tensor(state.frame_idx, dev, i32),
     )
+
+
+def pose_graph_from_numpy(g, device="cuda") -> PoseGraph:
+    """The JAX `PoseGraph` as the port's."""
+    dev = resolve_device(device)
+    return PoseGraph(
+        poses=_tensor(g.poses, dev, torch.float32),
+        node_mask=_tensor(g.node_mask, dev, torch.bool),
+        edges_ij=_tensor(g.edges_ij, dev, torch.int64),
+        edges_meas=_tensor(g.edges_meas, dev, torch.float32),
+        edges_info=_tensor(g.edges_info, dev, torch.float32),
+        edge_mask=_tensor(g.edge_mask, dev, torch.bool),
+    )
+
+
+def ba_problem_from_numpy(p, device="cuda") -> BAProblem:
+    """The JAX `BAProblem` as the port's."""
+    dev = resolve_device(device)
+    f32, i64, b = torch.float32, torch.int64, torch.bool
+    return BAProblem(
+        poses=_tensor(p.poses, dev, f32), pose_mask=_tensor(p.pose_mask, dev, b),
+        landmarks=_tensor(p.landmarks, dev, f32), lm_mask=_tensor(p.lm_mask, dev, b),
+        obs_pose=_tensor(p.obs_pose, dev, i64), obs_lm=_tensor(p.obs_lm, dev, i64),
+        obs_xy=_tensor(p.obs_xy, dev, f32), obs_mask=_tensor(p.obs_mask, dev, b),
+    )
+
+
+def backend_state_from_numpy(bs) -> BackendState:
+    """The JAX `BackendState` (host arrays) as the port's."""
+    return BackendState(prev_cursor=int(bs.prev_cursor),
+                        edges_ij=np.array(bs.edges_ij, np.int32).reshape(-1, 2),
+                        edges_meas=np.array(bs.edges_meas, np.float32).reshape(-1, 3))

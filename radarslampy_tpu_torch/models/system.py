@@ -9,7 +9,9 @@ Usage:
     result = sys.run()
     print(result.rmse_vs_gt, result.fps)
 
-The back-end (`optimize`, `ba`, `backend_every`) and the figures (`viz_dir`)
+The back-end runs as in the JAX driver: `optimize_map` (loop closure, pose
+graph, optionally BA) after the run with `optimize` or `ba`, and
+`incremental_backend` every `backend_every` frames.  The figures (`viz_dir`)
 are not ported yet: `run` raises `NotImplementedError` on them.
 """
 
@@ -28,6 +30,10 @@ from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import DEFAULT_CONFIG, SlamConfig
 from radarslampy_tpu_torch.io import oxford
 from radarslampy_tpu_torch.models import frontend
+from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
+from radarslampy_tpu_torch.models.loopclosure import (close_loops, incremental_backend,
+                                                      trim_map_state)
+from radarslampy_tpu_torch.models.posegraph import optimize_pose_graph
 from radarslampy_tpu_torch.models.trajectory import Trajectory, align_and_rmse
 from radarslampy_tpu_torch.utils.checkpoint import load_meta, load_state, save_state
 
@@ -42,12 +48,13 @@ class RunResult:
     seconds: float
     fps: float
     final_state: frontend.SlamState
-    # back-end results of the JAX driver; they keep their defaults until the
-    # back-end is ported
+    # back-end: loop closure + pose graph after the run (run(optimize=True))
     n_loop_closures: int = 0
+    # loops found by the online passes (run(backend_every=N))
     n_online_loops: int = 0
     kf_poses_optimized: Optional[np.ndarray] = None
     posegraph_cost: Optional[float] = None
+    # bundle adjustment (run(ba=True))
     kf_poses_ba: Optional[np.ndarray] = None
     landmarks_ba: Optional[np.ndarray] = None
     ba_cost: Optional[float] = None
@@ -164,14 +171,44 @@ class RadarSlamSystem:
             return np.asarray(self.gt_traj.pose_at_times(timestamp))
         return np.zeros(3)
 
+    def optimize_map(self, state: frontend.SlamState, ba: bool = False):
+        """Back-end pass over the finished map: loop closure and the pose
+        graph, then, with `ba`, Schur-complement bundle adjustment over the
+        persistent landmarks, on the state's device -> (pose-graph keyframe
+        poses [M, 3] or None, n_loop_closures, pg cost or None, BA keyframe
+        poses or None, BA landmarks or None, BA cost or None)."""
+        m = trim_map_state(state.map)
+        graph, matches = close_loops(m, self.cfg)
+        n_loops = int(matches.ok.sum())
+        M = int(m.cursor)
+        kf_pg, pg_cost = None, None
+        if n_loops > 0:
+            poses, cost = optimize_pose_graph(graph, self.cfg)
+            kf_pg, pg_cost = poses[:M].cpu().numpy(), float(cost)
+
+        kf_ba, lm_ba, ba_cost = None, None, None
+        if ba:
+            if kf_pg is not None:
+                # seed BA from the loop-corrected poses; the world landmark
+                # estimates were anchored to the drifted odometry poses
+                m = reseed_map(m, kf_pg)
+            problem = build_ba_problem(m, min_views=2)
+            if bool(problem.lm_mask.any()):
+                poses_b, lms, cost_b = optimize_ba(problem, self.cfg)
+                kf_ba = poses_b[:M].cpu().numpy()
+                lm_ba = lms[problem.lm_mask].cpu().numpy()
+                ba_cost = float(cost_b)
+        return kf_pg, n_loops, pg_cost, kf_ba, lm_ba, ba_cost
+
     @staticmethod
-    def _write_metrics(path, start, stamps, rows):
+    def _write_metrics(path, start, stamps, rows, online_events):
         """Write the per-frame JSONL metrics, one record per stepped frame
-        (`rows`: the fetched [n, 8] per-frame block, see `_row`)."""
+        (`rows`: the fetched [n, 8] per-frame block, see `_row`), with
+        `online_loops_closed` on frames whose online pass closed loops."""
         with open(path, "w") as f:
             for k, (ts, row) in enumerate(zip(stamps, rows)):
                 nt, ni, ok, kf, rt = row[3:8]
-                f.write(json.dumps({
+                rec = {
                     "frame": start + k + 1,
                     "timestamp": int(ts),
                     "n_tracked": int(nt),
@@ -179,7 +216,11 @@ class RadarSlamSystem:
                     "fit_ok": bool(ok),
                     "is_keyframe": bool(kf),
                     "did_retrack": bool(rt),
-                }) + "\n")
+                }
+                nl = online_events.get(start + k + 1)
+                if nl:
+                    rec["online_loops_closed"] = int(nl)
+                f.write(json.dumps(rec) + "\n")
 
     def run(self, start: int = 0, end: int = -1, optimize: bool = False,
             ba: bool = False, checkpoint_dir: Optional[str] = None,
@@ -207,15 +248,18 @@ class RadarSlamSystem:
         [A, Wpad] u8 or float scan, and `.frame_timestamp`) used in place of
         the sequence's PNGs; `end` then defaults to `start`.
 
-        `optimize`, `ba`, `backend_every` and `viz_dir` raise
-        `NotImplementedError`: the back-end (ROADMAP.md Queue 1, item 5) and
-        `viz/plots.py` (item 8) are not ported yet.  `viz_every` only
-        applies with `viz_dir`.
+        `optimize` / `ba`: after the last frame, `optimize_map` (loop closure
+        and pose graph; with `ba` also bundle adjustment) fills the result's
+        back-end fields.  `backend_every`: every that many frames an online
+        pass (`incremental_backend`) verifies the loops of the keyframes
+        added since the last pass, re-solves the pose graph and feeds the
+        corrected poses back into the running state; 0 = none.  The final
+        checkpoint holds that re-anchored state.
+
+        `viz_dir` raises `NotImplementedError`: `viz/plots.py` is not ported
+        yet (ROADMAP.md Queue 1, item 8).  `viz_every` only applies with
+        `viz_dir`.
         """
-        if optimize or ba or backend_every:
-            raise NotImplementedError(
-                "optimize, ba and backend_every need the back-end (loop closure, "
-                "pose graph, BA), which is not ported yet (ROADMAP.md Queue 1, item 5)")
         if viz_dir:
             raise NotImplementedError(
                 "viz_dir needs viz/plots.py, which is not ported yet "
@@ -259,6 +303,9 @@ class RadarSlamSystem:
         # fps counts from the end of the first step (its warm-up excluded)
         t0 = time.perf_counter()
         n = 0
+        n_online_loops = 0
+        backend_state = None
+        online_events = {}
         stamps: List[int] = []
         rows: List[torch.Tensor] = []
         for frame in it:
@@ -272,6 +319,12 @@ class RadarSlamSystem:
                 t0 = time.perf_counter()
             if self.progress is not None:
                 self.progress(n, out)
+            if backend_every and n % backend_every == 0:
+                state, nl, _, backend_state = incremental_backend(
+                    state, cfg, backend_state=backend_state)
+                n_online_loops += nl
+                if nl:
+                    online_events[start + n] = nl
             if checkpoint_dir and checkpoint_every and n % checkpoint_every == 0:
                 partial = Trajectory(est.timestamps, est.poses)
                 for ts, pose in zip(stamps, _fetch(rows)[:, :3]):
@@ -284,13 +337,18 @@ class RadarSlamSystem:
         for ts, pose in zip(stamps, rows_np[:, :3]):
             est.append(ts, pose)
         if metrics_path:
-            self._write_metrics(metrics_path, start, stamps, rows_np)
+            self._write_metrics(metrics_path, start, stamps, rows_np, online_events)
         inlier_counts = rows_np[:, 4].astype(int) if len(rows_np) else np.array([0])
         n_fit_failures = int(np.sum(rows_np[:, 5] == 0.0))
 
         rmse = None
         if self.gt_traj is not None and len(est.timestamps) > 1:
             rmse, _, _ = align_and_rmse(self.gt_traj, est)
+
+        kf_opt, n_loops, pg_cost = None, 0, None
+        kf_ba, lm_ba, ba_cost = None, None, None
+        if optimize or ba:
+            kf_opt, n_loops, pg_cost, kf_ba, lm_ba, ba_cost = self.optimize_map(state, ba=ba)
 
         if checkpoint_dir:
             save_state(checkpoint_dir, state, est,
@@ -305,6 +363,13 @@ class RadarSlamSystem:
             seconds=dt,
             fps=(n - 1) / dt if dt > 0 and n > 1 else float("inf"),
             final_state=state,
+            n_loop_closures=n_loops,
+            n_online_loops=n_online_loops,
+            kf_poses_optimized=kf_opt,
+            posegraph_cost=pg_cost,
+            kf_poses_ba=kf_ba,
+            landmarks_ba=lm_ba,
+            ba_cost=ba_cost,
             n_fit_failures=n_fit_failures,
             min_inliers=int(inlier_counts.min()),
         )

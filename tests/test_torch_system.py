@@ -15,6 +15,7 @@ tests/test_torch_frontend.py (1e-3 m, 1e-4 rad; measured 1.0e-4 m); the
 port's resume equal to its straight run bit for bit.
 """
 
+import collections
 import json
 import os
 import shutil
@@ -251,8 +252,7 @@ def test_prefetcher_propagates_decode_errors(tmp_path):
         next(iter(TS._Prefetcher([str(corrupt)], cfg, raw_u8=True)))
 
 
-@pytest.mark.parametrize("kw", [dict(optimize=True), dict(ba=True), dict(backend_every=4),
-                                dict(viz_dir="viz")], ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [dict(viz_dir="viz")], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(seq, kw):
     sys_ = RadarSlamSystem(SEQ, seq["root"], SlamConfig(**KW), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -267,7 +267,7 @@ def test_driver_defaults_to_cuda(seq):
             RadarSlamSystem(SEQ, seq["root"], SlamConfig(**KW))
 
 
-def test_cli_prints_the_jax_summary(seq, tmp_path):
+def test_cli_prints_the_jax_summary(seq, tmp_path, capsys):
     out_dir, metrics, ck = tmp_path / "out", tmp_path / "m.jsonl", tmp_path / "ck"
     run = subprocess.run(
         [sys.executable, "-m", "radarslampy_tpu_torch", SEQ, "0", "5", "--data-root",
@@ -286,6 +286,144 @@ def test_cli_prints_the_jax_summary(seq, tmp_path):
         assert t["poses"].shape == (6, 3)
     assert len(_records(metrics)) == 5
     assert checkpoint.load_meta(str(ck)) == {"next_frame_index": 6}
-    with pytest.raises(NotImplementedError):
-        port_main([SEQ, "--data-root", seq["root"], "--cart-size", "256", "--cpu",
-                   "--loop-closure"])
+    # the back-end flags run (no loop on this short arc, so no pose-graph cost)
+    capsys.readouterr()
+    assert port_main([SEQ, "0", "5", "--data-root", seq["root"], "--cart-size", "256", "--cpu",
+                      "--loop-closure", "--ba", "--backend-every", "2"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(summary) == JAX_CLI_KEYS + ["online_loops", "loop_closures", "ba_cost",
+                                            "ba_landmarks"]
+    assert summary["online_loops"] == summary["loop_closures"] == 0
+    assert np.isfinite(summary["ba_cost"]) and summary["ba_landmarks"] > 0
+
+
+# ---- the back-end on a closed loop ----
+# 49 frames on a circle of 40 frames a turn, 2.2 m chords (every frame a
+# keyframe, clear of the 2.0 m threshold), so keyframes 40-48 revisit 0-8; the
+# online pass runs at steps 24 and 48 and the second one closes loops.  Map
+# capacity 64 keyframes, 128 features.  The online pass pads the map to 1024
+# rows, so each of its LM iterations is a dense 3072 x 3072 solve on the CPU:
+# 3 iterations keep the tests short.
+LOOP_KW = dict(cart_size=256, cart_downsample=16, n_candidates=256, k_max=128,
+               max_keyframes=64, pg_iterations=3)
+LOOP_N, LOOP_B = 49, 24
+LOOP_SEQ = "loop"
+Frame = collections.namedtuple("Frame", "power frame_timestamp")
+# the back-end on one shared state: pose graph (and the state re-anchored by
+# it) as tests/test_torch_posegraph.py, BA as tests/test_torch_ba.py
+PG_M, PG_RAD, BA_M, BA_RAD = 1e-3, 1e-4, 5e-3, 5e-4
+
+
+def _circle(n, per_turn=40, chord=2.2):
+    radius = chord / (2 * np.sin(np.pi / per_turn))
+    th = np.arange(n) * 2 * np.pi / per_turn
+    return np.stack([radius * np.sin(th), radius * (1 - np.cos(th)), th], 1)
+
+
+@pytest.fixture(scope="module")
+def loop_seq(tmp_path_factory):
+    """The loop's frames (u8) and a sequence directory with its timestamps and
+    GT; both drivers take the frames through `frame_source`."""
+    root = tmp_path_factory.mktemp("loop")
+    cfg = SlamConfig(**LOOP_KW)
+    poses = _circle(LOOP_N)
+    frames = np.stack([np.clip(np.round(s * 255.0), 0, 255).astype(np.uint8)
+                       for _, s in fd.render_sequence(np.random.default_rng(7), poses, cfg,
+                                                      n_landmarks=1200, with_distortion=True,
+                                                      noise=0.01)])
+    stamps = oxford_files.write_sequence(str(root), LOOP_SEQ, poses, cfg)
+    return dict(root=str(root), poses=poses, frames=frames, stamps=stamps)
+
+
+def _frames(loop_seq):
+    return [Frame(f, int(t)) for f, t in zip(loop_seq["frames"], loop_seq["stamps"])]
+
+
+@pytest.fixture(scope="module")
+def loop_runs(loop_seq, tmp_path_factory):
+    """The JAX driver with the back-end on (and one more JAX online pass over
+    its final state, from an empty back-end state), then the port's driver on
+    the same frames."""
+    from radarslampy_tpu.models import loopclosure as jlc
+
+    cfg, jcfg = SlamConfig(**LOOP_KW), JaxConfig(**LOOP_KW)
+    kw = dict(optimize=True, ba=True, backend_every=LOOP_B)
+    jres = JS.RadarSlamSystem(LOOP_SEQ, loop_seq["root"], jcfg).run(
+        frame_source=_frames(loop_seq), **kw)
+    jinc = jlc.incremental_backend(jres.final_state, jcfg)
+    tmp = tmp_path_factory.mktemp("loop_port")
+    res = RadarSlamSystem(LOOP_SEQ, loop_seq["root"], cfg, device="cpu").run(
+        frame_source=_frames(loop_seq), metrics_path=str(tmp / "m.jsonl"),
+        checkpoint_dir=str(tmp / "ck"), **kw)
+    return dict(cfg=cfg, jres=jres, jinc=jinc, res=res, tmp=tmp)
+
+
+def _close(a, b, tol_m, tol_rad):
+    np.testing.assert_allclose(a[:, :2], b[:, :2], atol=tol_m, rtol=0)
+    np.testing.assert_allclose(a[:, 2], b[:, 2], atol=tol_rad, rtol=0)
+
+
+def test_optimize_map_on_the_jax_final_state(loop_runs):
+    """The port's post-hoc back-end on the JAX driver's final state (carried
+    across) against what the JAX driver's own pass computed from it."""
+    d = loop_runs
+    jres = d["jres"]
+    state = slam_state_from_numpy(jax.device_get(jres.final_state), d["cfg"], "cpu")
+    kf_pg, n_loops, pg_cost, kf_ba, lm_ba, ba_cost = RadarSlamSystem.optimize_map(
+        _backend_only(d["cfg"]), state, ba=True)
+    assert n_loops == jres.n_loop_closures >= 1
+    _close(kf_pg, jres.kf_poses_optimized, PG_M, PG_RAD)
+    assert pg_cost == pytest.approx(jres.posegraph_cost, rel=1e-4, abs=1e-6)
+    _close(kf_ba, jres.kf_poses_ba, BA_M, BA_RAD)
+    assert lm_ba.shape == jres.landmarks_ba.shape
+    np.testing.assert_allclose(lm_ba, jres.landmarks_ba, atol=BA_M, rtol=0)
+    assert ba_cost == pytest.approx(jres.ba_cost, rel=1e-3)
+
+
+def _backend_only(cfg):
+    """A RadarSlamSystem stand-in for `optimize_map`, which reads only cfg."""
+    obj = RadarSlamSystem.__new__(RadarSlamSystem)
+    obj.cfg = cfg
+    return obj
+
+
+def test_incremental_backend_on_the_jax_final_state(loop_runs):
+    from radarslampy_tpu_torch.models.loopclosure import incremental_backend
+
+    d = loop_runs
+    state = slam_state_from_numpy(jax.device_get(d["jres"].final_state), d["cfg"], "cpu")
+    st, n, cost, bs = incremental_backend(state, d["cfg"])
+    jst, jn, jcost, jbs = d["jinc"]
+    assert n == jn >= 1 and bs.prev_cursor == jbs.prev_cursor
+    np.testing.assert_array_equal(bs.edges_ij, jbs.edges_ij)
+    assert cost == pytest.approx(jcost, rel=1e-4)
+    _close(st.pose[None].numpy(), np.asarray(jst.pose)[None], PG_M, PG_RAD)
+    _close(st.kf_pose[None].numpy(), np.asarray(jst.kf_pose)[None], PG_M, PG_RAD)
+    _close(st.map.poses.numpy(), np.asarray(jst.map.poses), PG_M, PG_RAD)
+    # world features move with their keyframe: the pose bound plus the heading
+    # bound over the longest lever arm
+    lever = float(torch.linalg.vector_norm(state.map.feat_local, dim=-1).max())
+    for a, b in ((st.feat_world, jst.feat_world), (st.map.feat_world, jst.map.feat_world)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=PG_M + PG_RAD * lever, rtol=0)
+
+
+def test_run_with_the_backend_fills_every_field(loop_runs, loop_seq):
+    d = loop_runs
+    res, jres = d["res"], d["jres"]
+    assert res.frames == jres.frames == LOOP_N
+    assert res.n_keyframes == jres.n_keyframes == LOOP_N
+    assert res.n_online_loops >= 1 and jres.n_online_loops >= 1
+    assert res.n_loop_closures >= 1 and jres.n_loop_closures >= 1
+    M = res.n_keyframes
+    for f in ("kf_poses_optimized", "kf_poses_ba"):
+        x = getattr(res, f)
+        assert x.shape == (M, 3) and np.isfinite(x).all(), f
+    assert res.landmarks_ba.ndim == 2 and len(res.landmarks_ba) > 0
+    assert np.isfinite([res.posegraph_cost, res.ba_cost]).all()
+    recs = _records(d["tmp"] / "m.jsonl")
+    assert [r["frame"] for r in recs if "online_loops_closed" in r] == [2 * LOOP_B]
+    assert sum(r.get("online_loops_closed", 0) for r in recs) == res.n_online_loops
+    # the final checkpoint holds the state the online passes re-anchored
+    state, _ = checkpoint.load_state(str(d["tmp"] / "ck"), d["cfg"], "cpu")
+    for a, b in zip(_leaves(state), _leaves(res.final_state)):
+        assert torch.equal(a, b)
