@@ -47,7 +47,20 @@ Phases, one line each (elapsed seconds in brackets):
      candidates, loops, CG sweeps and mean keyframe error before and after;
      (c) `close_loops`, the dense pose graph and dense BA on a small map on
      the card and on the CPU: candidates, loop edges and `ok` flags equal,
-     poses within the CPU parity tests' bounds.
+     poses within the CPU parity tests' bounds;
+  8. the evaluation harness (`evaluation.evaluate_sequence`) at `SlamConfig()`
+     over two turns of phase 7's circle (81 frames, the speed ramped up over
+     the first 4), scans rendered on the card in the corridor world: (a)
+     chunks of 16, the online back-end every 32 frames, the post-hoc pass and
+     BA, a checkpoint at frame 49: fps, ATE, RPE, heading RMSE, loops, loop
+     edge error, keyframe ATE before and after the pose graph and after BA,
+     health, DoH launches; (b) a resume from that checkpoint equal to (a) bit
+     for bit, and a resume under another seed refused; (c) chunks of 16 and
+     of 13 (a padded tail) without the back-end, equal bit for bit; (d) the
+     "sum" renderer, its ATE within max(2x (c)'s, 1 m); (e) one frame of the
+     renderer in each mode, timed; (f) 25 frames at a small config at noise
+     0 on the card and on the CPU; (g) the CLI `evaluation.main` on a
+     written GT csv, its artifact holding the JAX CLI's keys.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -272,8 +285,17 @@ def step_profile(prof):
         raise AssertionError(f"expected one slam_step with one range per stage, got "
                              f"{[e.name for e in ranges]}")
     t0, t1 = step[0].time_range.start, step[0].time_range.end
+    busy = device_busy_us(events, t0, t1, skip=lambda e: e.name.startswith("slam_step"))
+    return stages, (t1 - t0) / 1e3, busy / 1e3
+
+
+def device_busy_us(events, t0=float("-inf"), t1=float("inf"), skip=lambda e: False):
+    """The union of the device activity among profiler `events` inside
+    [t0, t1], in us."""
+    from torch.autograd import DeviceType
+
     spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in events
-                   if e.device_type != DeviceType.CPU and not e.name.startswith("slam_step")
+                   if e.device_type != DeviceType.CPU and not skip(e)
                    and not getattr(e, "is_user_annotation", False))
     busy, cur = 0.0, None
     for a, b in spans:
@@ -284,8 +306,7 @@ def step_profile(prof):
             cur = [a, b]
         else:
             cur[1] = max(cur[1], b)
-    busy += 0 if cur is None else cur[1] - cur[0]
-    return stages, (t1 - t0) / 1e3, busy / 1e3
+    return busy + (0 if cur is None else cur[1] - cur[0])
 
 
 def untraced_ms(torch, step, dev):
@@ -693,6 +714,239 @@ def backend_card_vs_cpu(torch, cfg):
                         and d_lm <= BA_M))
 
 
+# Phase 8: two turns of phase 7's circle (LOOP_PER_TURN frames a turn,
+# LOOP_CHORD m chords), the speed ramped up linearly over the first EVAL_RAMP
+# frames: from rest, a first 2.2 m step (8.8 m/s of motion distortion against
+# the step's zero velocity prior) leaves the inlier count at the
+# min_inliers_accept gate, and whether that frame coasts is a toss-up.
+EVAL_N, EVAL_RAMP, EVAL_SEED = 81, 4, 11
+EVAL_CHUNK, EVAL_TAIL_CHUNK, EVAL_EVERY, EVAL_CKPT = 16, 13, 32, 48
+EVAL_SMALL_N = 25
+# Phase 8 (f), the card against the CPU over 25 frames, each carrying its own
+# state: float-order differences of KLT and the renderer flip one inlier of
+# the peeling now and then, and each flip moves the pose by centimetres
+# (this phase printed 4.0e-2 m on an H100); the bound of
+# tests/test_torch_sequence.py for two runs that each carry their own state,
+# one Cartesian pixel of SlamConfig() and 1/512 rad.
+EVAL_CARD_CPU_M, EVAL_CARD_CPU_RAD = 0.1728, 1.0 / 512
+# the keys of the JAX CLI's JSON artifact (radarslampy_tpu/evaluation.py, `_artifact`)
+EVAL_ARTIFACT_KEYS = (
+    "gt_csv", "start", "count", "path_m", "world", "seed", "noise", "cart_size",
+    "max_keyframes", "loop_method", "backend_every", "chunk_frames", "renderer", "platform",
+    "frames", "fps", "n_keyframes", "ate_odometry_m", "n_online_loops", "n_loop_closures",
+    "ate_keyframes_before_m", "ate_keyframes_after_m", "ate_keyframes_after_ba_m",
+    "n_ba_landmarks", "n_ba_observations", "loop_edge_err_median_m", "loop_edge_err_p90_m",
+    "n_loop_edges_bad", "mean_inliers", "frac_fit_ok", "n_retracks", "backend_error",
+    "rpe_trans_pct", "rpe_rot_deg_100m", "heading_rmse_deg", "quantize", "reference_ate_m")
+# EvalResult numbers that must repeat bit for bit (fps is a time)
+EVAL_NUMBERS = ("frames", "ate_odometry", "n_keyframes", "n_loop_closures", "n_online_loops",
+                "ate_keyframes_before", "ate_keyframes_after", "ate_keyframes_after_ba",
+                "n_ba_landmarks", "n_ba_observations", "mean_inliers", "frac_fit_ok",
+                "n_retracks", "loop_edge_err_median", "loop_edge_err_p90", "n_loop_edges_bad",
+                "backend_error", "rpe_trans_pct", "rpe_rot_deg_100m", "heading_rmse_deg")
+
+
+def eval_circle(n):
+    """The phase-8 trajectory [n, 3], starting at the origin, heading 0."""
+    import numpy as np
+
+    radius = LOOP_CHORD / (2 * np.sin(np.pi / LOOP_PER_TURN))
+    dth = 2 * np.pi / LOOP_PER_TURN * np.minimum(1.0, np.arange(1, n) / EVAL_RAMP)
+    th = np.concatenate([[0.0], np.cumsum(dth)])
+    return np.stack([radius * np.sin(th), radius * (1 - np.cos(th)), th], 1)
+
+
+def evals_equal(torch, a, b):
+    """Two EvalResults equal bit for bit: per-frame estimates, GT keyframes,
+    every number but fps, and every leaf of the final state."""
+    import numpy as np
+
+    return (np.array_equal(a.est_frames, b.est_frames)
+            and all(getattr(a, f) == getattr(b, f) for f in EVAL_NUMBERS)
+            and (a.gt_keyframes is None) == (b.gt_keyframes is None)
+            and (a.gt_keyframes is None or np.array_equal(a.gt_keyframes, b.gt_keyframes))
+            and states_equal(torch, a.final_state, b.final_state))
+
+
+def render_times(torch, cfg, poses, n=30):
+    """Phase 8 (e): one frame of the device renderer in each mode at `cfg`,
+    with the eval's noise: ms per call from CUDA events around single calls
+    (median of n, host work included), and the device's busy time per call
+    from torch.profiler over n calls."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch import evaluation as ev
+    from radarslampy_tpu_torch.sim import fakedata as fd
+    from radarslampy_tpu_torch.sim.render_device import render_polar_scan_device
+
+    wp, wr = fd.make_world_corridor(np.random.default_rng(EVAL_SEED), poses,
+                                    cfg.max_range_clip_m)
+    wp = torch.as_tensor(wp, dtype=torch.float32, device="cuda")
+    wr = torch.as_tensor(wr, dtype=torch.float32, device="cuda")
+    pose = torch.as_tensor(poses[10], dtype=torch.float32, device="cuda")
+    vel = torch.tensor([8.8, 0.0, 0.63], device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(ev.frame_seed(EVAL_SEED, 10))
+    out = {}
+    for mode in ("max", "sum"):
+        def call():
+            return render_polar_scan_device(wp, wr, pose, vel, gen, cfg, noise=0.02, mode=mode)
+
+        ms = time_ms(call, reps=n)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        out[mode] = (ms, device_busy_us(prof.events()) / 1e3 / n)
+    return out
+
+
+def eval_phase(torch, cfg, tmp):
+    """Phase 8 (a)-(d) and (f)-(g) on the card; returns what main() checks
+    and prints."""
+    from radarslampy_tpu_torch import evaluation as ev
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.sim import oxford_files
+    from radarslampy_tpu_torch.utils.checkpoint import load_meta
+
+    poses = eval_circle(EVAL_N)
+    kw = dict(seed=EVAL_SEED, noise=0.02, return_state=True)
+    backend = dict(run_backend=True, run_ba=True, backend_every=EVAL_EVERY)
+    ck, snap = f"{tmp}/eval_ck", f"{tmp}/eval_ck_copy"
+    doh_cuda.launches = 0
+    t = time.time()
+    full = ev.evaluate_sequence(poses, cfg, chunk_frames=EVAL_CHUNK, renderer="max",
+                                ckpt_dir=ck, ckpt_every=EVAL_CKPT, **backend, **kw)
+    wall_s = time.time() - t
+    launches = doh_cuda.launches
+    out = dict(full=full, wall_s=wall_s, launches=launches)
+
+    # (b) resume from the checkpoint (a) left, and a refusal under another seed
+    shutil.copytree(ck, snap)
+    out["ckpt_meta"] = load_meta(ck)
+    out["resumed"] = ev.evaluate_sequence(poses, cfg, chunk_frames=EVAL_CHUNK, renderer="max",
+                                          ckpt_dir=snap, ckpt_every=EVAL_CKPT, resume=True,
+                                          **backend, **kw)
+    try:
+        ev.evaluate_sequence(poses, cfg, chunk_frames=EVAL_CHUNK, ckpt_dir=snap, resume=True,
+                             seed=EVAL_SEED + 1)
+        out["refused"] = False
+    except ValueError as exc:
+        out["refused"] = "refusing to resume" in str(exc)
+
+    # (c) chunk invariance without the back-end, (d) the sum renderer
+    out["c16"] = ev.evaluate_sequence(poses, cfg, chunk_frames=EVAL_CHUNK, **kw)
+    out["c13"] = ev.evaluate_sequence(poses, cfg, chunk_frames=EVAL_TAIL_CHUNK, **kw)
+    out["sum"] = ev.evaluate_sequence(poses, cfg, chunk_frames=EVAL_CHUNK, renderer="sum", **kw)
+
+    # (f) the card against the CPU at a small config, noise 0
+    small = eval_small_config()
+    out["small"] = {dev: ev.evaluate_sequence(poses[:EVAL_SMALL_N], small, seed=EVAL_SEED,
+                                              noise=0.0, chunk_frames=EVAL_CHUNK,
+                                              return_state=True, device=dev)
+                    for dev in ("cuda", "cpu")}
+
+    # (g) the CLI on a GT csv written for the circle's first 49 frames
+    oxford_files.write_sequence(tmp, "eval", poses, cfg)
+    art_path = f"{tmp}/eval.json"
+    cli = ev.main(["--gt-csv", f"{tmp}/eval/gt/radar_odometry.csv", "--count", "49",
+                   "--chunk-frames", str(EVAL_CHUNK), "--backend", "--ba", "--backend-every",
+                   str(EVAL_EVERY), "--seed", str(EVAL_SEED), "--progress-every", "0",
+                   "--matmul-precision", "highest", "--out", art_path])
+    with open(art_path) as f:
+        out["cli"], out["artifact"] = cli, json.load(f)
+    return out
+
+
+def eval_small_config():
+    from radarslampy_tpu_torch.config import SlamConfig
+
+    return SlamConfig(**dict(SMALL, max_keyframes=64))
+
+
+def eval_checks(torch, cfg, card):
+    """Phase 8: drives `eval_phase` and `render_times`, logs and checks what
+    they return; returns the DoH launches of the eval's main run (a)."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ev8 = eval_phase(torch, cfg, tmp)
+    full, eval_launches = ev8["full"], ev8["launches"]
+    log(f"eval (a): evaluate_sequence(chunk_frames={EVAL_CHUNK}, renderer='max', noise 0.02, "
+        f"backend_every={EVAL_EVERY}, run_ba, ckpt_every={EVAL_CKPT}) over {full.frames} frames "
+        f"in {ev8['wall_s']:.2f} s: fps {full.fps:.3f} ({1e3 / full.fps:.2f} ms/frame) on "
+        f"{card}; odometry ATE {full.ate_odometry:.4f} m, RPE {full.rpe_trans_pct} % and "
+        f"{full.rpe_rot_deg_100m} deg/100 m, heading RMSE {full.heading_rmse_deg:.4f} deg; "
+        f"keyframes {full.n_keyframes}; loops online {full.n_online_loops}, post hoc "
+        f"{full.n_loop_closures}; loop edge error median {full.loop_edge_err_median} m, p90 "
+        f"{full.loop_edge_err_p90} m, {full.n_loop_edges_bad} over 1 m; keyframe ATE "
+        f"{full.ate_keyframes_before} m (map), {full.ate_keyframes_after} m (pose graph), "
+        f"{full.ate_keyframes_after_ba} m (BA over {full.n_ba_landmarks} landmarks, "
+        f"{full.n_ba_observations} observations); health: mean inliers {full.mean_inliers:.2f}, "
+        f"fit_ok {full.frac_fit_ok:.4f}, retracks {full.n_retracks}; backend_error "
+        f"{full.backend_error}; doh launches {eval_launches}; checkpoint meta {ev8['ckpt_meta']}")
+    if full.backend_error is not None or not (full.n_online_loops >= 1
+                                              and full.n_loop_closures >= 1):
+        raise AssertionError(f"eval (a): no loop closed or the back-end failed: "
+                             f"{full.backend_error}")
+    if not (np.isfinite(full.est_frames).all() and full.ate_odometry < 5.0
+            and full.frames == EVAL_N and full.est_frames.shape == (EVAL_N, 3)
+            and np.isfinite([full.ate_keyframes_before, full.ate_keyframes_after,
+                             full.ate_keyframes_after_ba, full.rpe_trans_pct]).all()
+            and eval_launches >= 1):
+        raise AssertionError("eval (a): non-finite or lost estimates, or no DoH launch")
+    res_b = ev8["resumed"]
+    same_b = evals_equal(torch, res_b, full)
+    log(f"eval (b): resumed at frame {ev8['ckpt_meta']['next_t']} == (a) bit for bit "
+        f"(estimates, GT keyframes, every EvalResult number, every state leaf): {same_b}; "
+        f"another seed refused: {ev8['refused']}")
+    if not (same_b and ev8["refused"] and ev8["ckpt_meta"]["next_t"] == EVAL_CKPT + 1):
+        raise AssertionError("eval (b): the resume differs from the straight run, or a "
+                             "mismatched seed was not refused")
+    c16, c13 = ev8["c16"], ev8["c13"]
+    same_c = evals_equal(torch, c16, c13)
+    log(f"eval (c): chunks of {EVAL_CHUNK} and {EVAL_TAIL_CHUNK} (padded tail), no back-end: "
+        f"equal bit for bit {same_c}; ATE {c16.ate_odometry:.4f} m, fps {c16.fps:.3f} and "
+        f"{c13.fps:.3f} ({1e3 / c16.fps:.2f} and {1e3 / c13.fps:.2f} ms/frame)")
+    if not same_c:
+        raise AssertionError("eval (c): chunk 16 and chunk 13 differ")
+    rs = ev8["sum"]
+    sum_bound = max(2 * c16.ate_odometry, 1.0)
+    log(f"eval (d): renderer 'sum': ATE {rs.ate_odometry:.4f} m (bound {sum_bound:.4f} m), "
+        f"fps {rs.fps:.3f} ({1e3 / rs.fps:.2f} ms/frame), keyframes {rs.n_keyframes}")
+    if not rs.ate_odometry < sum_bound:
+        raise AssertionError(f"eval (d): the sum renderer's ATE {rs.ate_odometry} m is over "
+                             f"{sum_bound} m")
+    rt = render_times(torch, cfg, eval_circle(EVAL_N))
+    log("eval (e): one frame of render_polar_scan_device at SlamConfig() with noise: " + "; ".join(
+        f"'{m}' {ms:.4f} ms per call (CUDA events, host work included), {dev_ms:.4f} ms of "
+        f"device activity (torch.profiler)" for m, (ms, dev_ms) in rt.items())
+        + f"; the eval's step: {1e3 / c16.fps:.2f} ms/frame (c)")
+    sa, sb = ev8["small"]["cuda"], ev8["small"]["cpu"]
+    d = np.abs(sa.est_frames - sb.est_frames)
+    flags_f = (sa.n_keyframes == sb.n_keyframes and sa.n_retracks == sb.n_retracks
+               and torch.equal(sa.final_state.map.frame_ids.cpu(), sb.final_state.map.frame_ids))
+    log(f"eval (f): small config, {EVAL_SMALL_N} frames, noise 0, card vs CPU: keyframe flags "
+        f"equal {flags_f}, max diff {d[:, :2].max():.2e} m, {d[:, 2].max():.2e} rad (bounds "
+        f"{EVAL_CARD_CPU_M} m, {EVAL_CARD_CPU_RAD:.2e} rad)")
+    if not (flags_f and d[:, :2].max() <= EVAL_CARD_CPU_M and d[:, 2].max() <= EVAL_CARD_CPU_RAD):
+        raise AssertionError("eval (f): card and CPU evals disagree at the small config")
+    art, cli = ev8["artifact"], ev8["cli"]
+    missing = [k for k in EVAL_ARTIFACT_KEYS if k not in art]
+    log(f"eval (g): CLI over {art['frames']} frames: platform {art['platform']} "
+        f"({art['device_name']}), fps {art['fps']}, ATE {art['ate_odometry_m']} m, loops "
+        f"{art['n_online_loops']} online / {art['n_loop_closures']}, keyframe ATE "
+        f"{art['ate_keyframes_before_m']} -> {art['ate_keyframes_after_m']} -> "
+        f"{art['ate_keyframes_after_ba_m']} m; JAX artifact keys missing: {missing}")
+    if missing or art["platform"] != "cuda" or art["frames"] != cli.frames \
+            or art["backend_error"] is not None:
+        raise AssertionError(f"eval (g): artifact {art}")
+    return eval_launches
+
+
 def main() -> int:
     import torch
 
@@ -966,9 +1220,14 @@ def main() -> int:
     if not cvc["ok"]:
         raise AssertionError("card and CPU back-ends disagree at the small config")
 
-    doh_row["launches"] = launches + driver_launches + fmt_launches + bk["launches"]
+    # 8. the evaluation harness at SlamConfig(), scans rendered on the card
+    eval_launches = eval_checks(torch, cfg, card)
+
+    doh_row["launches"] = (launches + driver_launches + fmt_launches + bk["launches"]
+                           + eval_launches)
     doh_row["launches_by_path"] = {"step": launches, "driver": driver_launches,
-                                   "fmt_step": fmt_launches, "backend_driver": bk["launches"]}
+                                   "fmt_step": fmt_launches, "backend_driver": bk["launches"],
+                                   "eval": eval_launches}
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [doh_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Synthetic radar scans for the port's tests and card smoke run.
 
 The port's copy of the scan renderer of `radarslampy_tpu/sim/fakedata.py`
-(`make_world`, `render_polar_scan`, `render_sequence`), which cannot be
-imported without JAX: a random world of point landmarks, each rendered as a
-Gaussian blob in (azimuth, range) with optional constant-velocity motion
-distortion and Rayleigh noise.  Host-side numpy, never on the device path;
-`tests/test_torch_config.py` holds the two copies to identical output.
+(`make_world`, `make_world_corridor`, `render_polar_scan`, `render_sequence`),
+which cannot be imported without JAX: a world of point landmarks, each
+rendered as a Gaussian blob in (azimuth, range) with optional
+constant-velocity motion distortion and Rayleigh noise.  Host-side numpy,
+never on the device path; `tests/test_torch_config.py` holds the two copies
+to identical output.
 """
 
 from __future__ import annotations
@@ -22,15 +23,50 @@ def make_world(rng, n_landmarks=400, extent_m=400.0):
     return pts, refl
 
 
+def make_world_corridor(rng, poses, radius_m, per_scan=80.0):
+    """Landmarks sampled in a corridor of `radius_m` around a trajectory, so
+    a scan sees ~`per_scan` landmarks however long and thin the route: each
+    landmark picks a path vertex (weighted by the length of its adjacent
+    segments) and a uniform point in the disc around it.
+
+    Returns ([N,2] positions, [N] reflectivities).
+    """
+    poses = np.asarray(poses, dtype=np.float64)
+    seg = np.diff(poses[:, :2], axis=0)
+    seg_len = np.linalg.norm(seg, axis=1)
+    path_len = float(seg_len.sum())
+    # half the length of each adjacent segment, plus a floor so a stationary
+    # trajectory still gets samples
+    w = np.zeros(len(poses))
+    w[:-1] += seg_len / 2
+    w[1:] += seg_len / 2
+    w += max(path_len, 1.0) * 1e-6
+    w /= w.sum()
+
+    corridor_area = path_len * 2 * radius_m + np.pi * radius_m**2
+    density = per_scan / (np.pi * radius_m**2)
+    n = max(400, int(corridor_area * density))
+
+    centers = poses[rng.choice(len(poses), size=n, p=w), :2]
+    r = radius_m * np.sqrt(rng.uniform(0, 1, size=n))
+    th = rng.uniform(0, 2 * np.pi, size=n)
+    pts = centers + np.stack([r * np.cos(th), r * np.sin(th)], axis=1)
+    refl = rng.uniform(0.4, 1.0, size=n)
+    return pts.astype(np.float64), refl
+
+
 def render_polar_scan(world_pts, world_refl, pose, cfg: SlamConfig,
                       velocity=None, noise=0.02, rng=None,
-                      blob_sigma_px=2.0, az_sigma=0.6):
+                      blob_sigma_px=2.0, az_sigma=0.6, mode="max"):
     """Render a synthetic polar scan [A, Wpad] of the world from `pose`.
 
     Each landmark inside the clip range becomes a Gaussian blob in (azimuth,
-    range) space.  If `velocity` is given, landmarks are shifted by the
-    constant-velocity motion model at their scan-time offset — true motion
-    distortion for end-to-end solver validation.
+    range) space: a 9 x 9 patch composed by maximum (`mode="max"`), or an
+    untruncated separable Gaussian composed by sum (`mode="sum"`, the host
+    mirror of `sim/render_device.py`'s matmul mode).  If `velocity` is
+    given, landmarks are shifted by the constant-velocity motion model at
+    their scan-time offset — true motion distortion for end-to-end solver
+    validation.
     """
     A = cfg.num_azimuths
     Wp = cfg.polar_width_padded
@@ -57,17 +93,27 @@ def render_polar_scan(world_pts, world_refl, pose, cfg: SlamConfig,
     az = phi / (2 * np.pi) * A
 
     inside = (r > 8) & (r < bins - 8)
-    half = 4
-    offs = np.arange(-half, half + 1)
-    for ri, ai, refl in zip(r[inside], az[inside], world_refl[inside]):
-        a0 = int(round(ai))
-        r0 = int(round(ri))
-        da = (a0 + offs) % A
-        dr = r0 + offs
-        ga = np.exp(-0.5 * ((a0 + offs - ai) / az_sigma) ** 2)
-        gr = np.exp(-0.5 * ((r0 + offs - ri) / blob_sigma_px) ** 2)
-        patch = refl * ga[:, None] * gr[None, :]
-        np.maximum.at(img, (da[:, None], dr[None, :].repeat(len(offs), 0)), patch)
+    if mode == "sum":
+        azs, rs, refls = az[inside], r[inside], world_refl[inside]
+        aa = np.arange(A, dtype=np.float64)
+        dang = np.abs(aa[None, :] - azs[:, None])
+        dang = np.minimum(dang, A - dang)
+        Ga = np.exp(-0.5 * (dang / az_sigma) ** 2) * refls[:, None]
+        ww = np.arange(Wp, dtype=np.float64)
+        Gr = np.exp(-0.5 * ((ww[None, :] - rs[:, None]) / blob_sigma_px) ** 2)
+        img = (Ga.T @ Gr).astype(np.float32)
+    else:
+        half = 4
+        offs = np.arange(-half, half + 1)
+        for ri, ai, refl in zip(r[inside], az[inside], world_refl[inside]):
+            a0 = int(round(ai))
+            r0 = int(round(ri))
+            da = (a0 + offs) % A
+            dr = r0 + offs
+            ga = np.exp(-0.5 * ((a0 + offs - ai) / az_sigma) ** 2)
+            gr = np.exp(-0.5 * ((r0 + offs - ri) / blob_sigma_px) ** 2)
+            patch = refl * ga[:, None] * gr[None, :]
+            np.maximum.at(img, (da[:, None], dr[None, :].repeat(len(offs), 0)), patch)
 
     if noise > 0 and rng is not None:
         img[:, :bins] += rng.rayleigh(noise, size=(A, bins)).astype(np.float32)

@@ -106,3 +106,22 @@ def test_fakedata_copy_renders_identically():
     for (pa, sa), (pb, sb) in zip(a, b):
         np.testing.assert_array_equal(pa, pb)
         np.testing.assert_array_equal(sa, sb)
+
+
+@pytest.mark.parametrize("mode", ["max", "sum"])
+def test_fakedata_copy_corridor_world_renders_identically(mode):
+    """The corridor world and both blob compositions: the same rng draws,
+    the same landmarks, the same scans."""
+    kw = dict(cart_size=256, cart_downsample=16)
+    cfg, jcfg = SlamConfig(**kw), JaxConfig(**kw)
+    poses = np.array([[0.0, 0.0, 0.0], [2.2, 0.1, 0.05], [4.3, 0.3, 0.1]])
+    rngs = np.random.default_rng(5), np.random.default_rng(5)
+    wa = fakedata.make_world_corridor(rngs[0], poses, cfg.max_range_clip_m, per_scan=60.0)
+    wb = jax_fakedata.make_world_corridor(rngs[1], poses, jcfg.max_range_clip_m, per_scan=60.0)
+    for a, b in zip(wa, wb):
+        np.testing.assert_array_equal(a, b)
+    for p in poses:
+        vel = np.array([8.0, 0.4, 0.2])
+        sa = fakedata.render_polar_scan(*wa, p, cfg, velocity=vel, rng=rngs[0], mode=mode)
+        sb = jax_fakedata.render_polar_scan(*wb, p, jcfg, velocity=vel, rng=rngs[1], mode=mode)
+        np.testing.assert_array_equal(sa, sb)

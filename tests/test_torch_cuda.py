@@ -159,3 +159,69 @@ def test_pcg_graph_replay_matches_eager_sweeps_and_the_cpu(cuda):
     cpu, _ = tpg._optimize_pose_graph_pcg(ring, cfg)
     d = (card.cpu() - cpu).abs().max(0).values
     assert float(d[:2].max()) <= 1e-3 and float(d[2]) <= 1e-4
+
+
+# The small grid of tests/test_torch_render_device.py
+RENDER_KW = dict(cart_size=512, cart_downsample=8, n_candidates=256, anms_top_k=100,
+                 k_max=128, max_keyframes=128)
+
+
+@pytest.mark.parametrize("mode", ["max", "sum"])
+def test_renderer_on_the_card_matches_the_cpu(cuda, mode):
+    """The device renderer on the card and on the CPU at noise 0, held as
+    tests/test_torch_render_device.py holds it against JAX's: "sum" within
+    1e-4; "max" (a blob centre can round to the next cell) 99.5% of pixels
+    within 1e-3 and mean under 1e-4; after quantize_u8 at most 0.5% of
+    pixels differ."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.sim import fakedata as fd
+    from radarslampy_tpu_torch.sim.render_device import quantize_u8, render_polar_scan_device
+
+    cfg = SlamConfig(**RENDER_KW)
+    wp, wr = fd.make_world(np.random.default_rng(3), 300, 120.0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        def t(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        out[dev.type] = render_polar_scan_device(
+            t(wp), t(wr), t([5.0, -3.0, 0.4]), t([8.0, 0.5, 0.05]), None, cfg, noise=0.0,
+            k_vis=256, mode=mode)
+    card, cpu = out["cuda"].cpu(), out["cpu"]
+    d = (card - cpu).abs()
+    if mode == "sum":
+        assert float(d.max()) <= 1e-4
+    else:
+        assert float(torch.quantile(d.flatten().double(), 0.995)) < 1e-3
+        assert float(d.mean()) < 1e-4
+    assert float((quantize_u8(card) != quantize_u8(cpu)).double().mean()) <= 5e-3
+    assert (cpu > 0.1).sum() > 100
+
+
+def test_device_render_eval_on_the_card_matches_the_cpu(cuda):
+    """One short device-render eval (9 frames, chunks of 4 with a padded
+    tail) on the card and on the CPU at noise 0: the same keyframes and
+    retrack count; poses within the bound of tests/test_torch_sequence.py
+    for two runs that each carry their own state (0.1728 m, 1/512 rad): a
+    float-order difference in KLT or the renderer can flip one inlier of the
+    peeling, which moves a pose by centimetres (measured on an H100: 2.7e-2 m
+    at frame 7)."""
+    import numpy as np
+
+    from radarslampy_tpu_torch import evaluation
+    from radarslampy_tpu_torch.config import SlamConfig
+
+    radius = 2.2 / (2 * np.sin(np.pi / 40))
+    th = 2 * np.pi / 40 * np.concatenate([[0.0], np.cumsum(np.minimum(1.0, np.arange(1, 9) / 4))])
+    poses = np.stack([radius * np.sin(th), radius * (1 - np.cos(th)), th], 1)
+    cfg = SlamConfig(**RENDER_KW)
+    res = {dev: evaluation.evaluate_sequence(poses, cfg, seed=2, noise=0.0, chunk_frames=4,
+                                             return_state=True, device=dev)
+           for dev in ("cuda", "cpu")}
+    a, b = res["cuda"], res["cpu"]
+    d = np.abs(a.est_frames - b.est_frames)
+    assert float(d[:, :2].max()) <= 0.1728 and float(d[:, 2].max()) <= 1.0 / 512
+    assert (a.n_keyframes, a.n_retracks) == (b.n_keyframes, b.n_retracks)
+    assert torch.equal(a.final_state.map.frame_ids.cpu(), b.final_state.map.frame_ids)
