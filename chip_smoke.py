@@ -60,7 +60,21 @@ Phases, one line each (elapsed seconds in brackets):
      "sum" renderer, its ATE within max(2x (c)'s, 1 m); (e) one frame of the
      renderer in each mode, timed; (f) 25 frames at a small config at noise
      0 on the card and on the CPU; (g) the CLI `evaluation.main` on a
-     written GT csv, its artifact holding the JAX CLI's keys.
+     written GT csv, its artifact holding the JAX CLI's keys;
+  9. the distributed back-end (`parallel/`) in a world of one rank joined
+     through `parallel.launch.initialize` (NCCL): (a) the sharded pose graph,
+     dense on phase 7's loop graph (equal bit for bit to the single-device
+     solve) and "gather" and "pcg" on the 1,280-row graph of the
+     1,100-keyframe map at 3 LM iterations; (b) the sharded BA, dense on the
+     loop's problem and PCG on the 1,100-pose problem at 3 LM iterations,
+     both within 1e-3 m and a cost rtol of 1e-3 of the single-device
+     solvers; (c) the sharded map queries on the 1,100-keyframe map, equal to
+     the dense ones; (d) the sharded loop verification of that map's
+     candidates against serial `verify_candidate`; (e) `run_segments` at
+     `SlamConfig()` over 4 segments of 8 frames of one arc, equal bit for
+     bit to the segments run one after another, with its frames/s, DoH
+     launches and `join_segments`; (f) the launcher's three benches (2 reps)
+     and `python -m radarslampy_tpu_torch.parallel.launch --spawn 1 --smoke`.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -613,7 +627,8 @@ def timed(torch, fn):
 
 def solver_stages(torch, cfg, m, gt):
     """Phase 7 (b): close_loops, the pose graph, BA and two online passes over
-    the map grown in two stages, each timed; returns one dict per stage."""
+    the map grown in two stages, each timed; returns one dict per stage, and
+    the trimmed map, its loop graph and its BA problem (phase 9 reuses them)."""
     from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
     from radarslampy_tpu_torch.models.loopclosure import (close_loops, incremental_backend,
                                                           trim_map_state)
@@ -668,7 +683,7 @@ def solver_stages(torch, cfg, m, gt):
                            solver=("pcg" if inc.get("cg_sweeps") else "dense") if n_new else None,
                            cg_sweeps=inc.get("cg_sweeps", 0), err_before=err0,
                            err_after=kf_error(state.map.poses[:n].cpu().numpy(), gt[:n])))
-    return stages
+    return stages, dict(map=mt, graph=graph, problem=problem)
 
 
 def _rows(torch, a, n):
@@ -946,6 +961,301 @@ def eval_checks(torch, cfg, card):
         raise AssertionError(f"eval (g): artifact {art}")
     return eval_launches
 
+# Phase 9: the distributed back-end (parallel/) on the card at world 1 (NCCL
+# takes one rank per GPU), on phase 7's graphs, BA problems and map.  (a)-(b)
+# run the iterative solvers at PAR_ITERS LM iterations; their bounds against
+# the single-device solvers are those of the JAX package's tests/test_parallel.py
+# (poses 1e-3 m, cost rtol 1e-3 / atol 1e-4).  A world of one pads nothing, so
+# the dense solves must be equal bit for bit, and only a padded edge list (which
+# reorders a sum) may differ, by PAR_PAD_RTOL.
+PAR_ITERS = 3
+PAR_M, PAR_COST_RTOL, PAR_COST_ATOL, PAR_PAD_RTOL = 1e-3, 1e-3, 1e-4, 1e-6
+PAR_REL = 1e-5          # (d) rel_pose against serial verify_candidate
+PAR_SEGMENTS, PAR_SEG_FRAMES, PAR_SEED = 4, 8, 6   # (e) segments overlapping by one frame
+PAR_SMOKE_S = 180       # (f) the launcher subprocess's time limit
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def pose_diff(a, b):
+    """Largest |a - b| over rows of poses [M, 3], as (x, y, theta)."""
+    return (a - b).abs().max(0).values.tolist()
+
+
+def cost_close(c, ref):
+    return abs(float(c) - float(ref)) <= PAR_COST_RTOL * abs(float(ref)) + PAR_COST_ATOL
+
+
+def parallel_solvers(torch, cfg, mesh, loop_map, scale):
+    """Phase 9 (a)-(b): the sharded pose graph and BA against the
+    single-device solvers; returns one dict per comparison."""
+    import dataclasses
+
+    from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
+    from radarslampy_tpu_torch.models.loopclosure import close_loops
+    from radarslampy_tpu_torch.models.posegraph import optimize_pose_graph
+    from radarslampy_tpu_torch.parallel.dist_ba import optimize_ba_sharded
+    from radarslampy_tpu_torch.parallel.dist_posegraph import optimize_pose_graph_sharded
+    from radarslampy_tpu_torch.parallel.mesh import axis_size
+
+    out = []
+    g_loop, _ = close_loops(loop_map, cfg)
+    (rp, rc), ms_ref = timed(torch, lambda: optimize_pose_graph(g_loop, cfg, method="dense"))
+    (gp, gc), ms = timed(torch, lambda: optimize_pose_graph_sharded(g_loop, cfg, mesh, "dense"))
+    padded = g_loop.edges_ij.shape[0] % axis_size(mesh) != 0
+    rel = float(((gp - rp).abs() / rp.abs().clamp(min=1e-30)).max())
+    equal = torch.equal(gp, rp) and torch.equal(gc, rc)
+    out.append(dict(part="a", solver="pose graph dense", rows=g_loop.poses.shape[0],
+                    edges=g_loop.edges_ij.shape[0], padded=padded, equal=equal, max_rel=rel,
+                    ms=ms, single_ms=ms_ref,
+                    ok=equal or (padded and rel <= PAR_PAD_RTOL)))
+
+    cfg3 = dataclasses.replace(cfg, pg_iterations=PAR_ITERS)
+    g = scale["graph"]
+    st = {}
+    (rp3, rc3), ms_ref = timed(torch, lambda: optimize_pose_graph(g, cfg3, method="pcg", stats=st))
+    for method in ("gather", "pcg"):
+        sm = {}
+        (p3, c3), ms = timed(torch, lambda: optimize_pose_graph_sharded(g, cfg3, mesh, method, sm))
+        d = pose_diff(p3, rp3)
+        out.append(dict(part="a", solver=f"pose graph {method}", rows=g.poses.shape[0],
+                        edges=g.edges_ij.shape[0], cg_sweeps=sm["cg_sweeps"],
+                        single_cg_sweeps=st["cg_sweeps"], max_diff=d, cost=float(c3),
+                        single_cost=float(rc3), equal=torch.equal(p3, rp3), ms=ms,
+                        single_ms=ms_ref, ms_per_sweep=ms / max(sm["cg_sweeps"], 1),
+                        single_ms_per_sweep=ms_ref / max(st["cg_sweeps"], 1),
+                        ok=max(d) <= PAR_M and cost_close(c3, rc3)))
+
+    M = int(loop_map.cursor)
+    p_loop = build_ba_problem(reseed_map(loop_map, rp[:M].cpu().numpy()), min_views=2)
+    p_big = scale["problem"]
+    for name, p, method, c in (("loop", p_loop, "dense", cfg), ("scale", p_big, "pcg", cfg3)):
+        st, sm = {}, {}
+        (rpo, rl, rc), ms_ref = timed(torch, lambda: optimize_ba(p, c, method=method, stats=st))
+        (bpo, bl, bc), ms = timed(torch, lambda: optimize_ba_sharded(p, c, mesh, method=method,
+                                                                     stats=sm))
+        L = rl.shape[0]
+        d = pose_diff(bpo, rpo) + [float((bl[:L] - rl).abs().max())]
+        out.append(dict(part="b", solver=f"BA {method} ({name})", poses=p.poses.shape[0],
+                        landmarks=int(p.lm_mask.sum()), observations=int(p.obs_mask.sum()),
+                        cg_sweeps=sm["cg_sweeps"], single_cg_sweeps=st["cg_sweeps"],
+                        max_diff=d, cost=float(bc), single_cost=float(rc),
+                        equal=torch.equal(bpo, rpo) and torch.equal(bl[:L], rl), ms=ms,
+                        single_ms=ms_ref, ok=max(d) <= PAR_M and cost_close(bc, rc)))
+    return out
+
+
+def parallel_queries(torch, cfg, mesh, m):
+    """Phase 9 (c)-(d): the sharded map queries against the dense ones and the
+    sharded verification against serial `verify_candidate`, on map `m`."""
+    from radarslampy_tpu_torch.models.loopclosure import (candidate_budget, find_candidates,
+                                                          verify_candidate)
+    from radarslampy_tpu_torch.models.placerecog import find_candidates_appearance
+    from radarslampy_tpu_torch.ops.features import top_k_stable
+    from radarslampy_tpu_torch.parallel import dist_verify, sharded_map
+    from radarslampy_tpu_torch.parallel.mesh import axis_size
+
+    out = {}
+    M, rows = int(m.cursor), m.poses.shape[0]
+    C = candidate_budget(M)
+    q = m.poses[M - 1]
+    idx = torch.arange(rows, device=q.device)
+    d = m.poses[:, :2] - q[:2]
+    d = torch.where((idx < M) & (idx < M - 20), torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]),
+                    float("inf"))
+    vals, order = top_k_stable(-d, 16)
+    (ni, nd, nv), ms = timed(torch, lambda: sharded_map.nearest_keyframes(
+        m, q, 16, mesh, exclude_after=M - 20))
+    out["nearest"] = dict(equal=torch.equal(ni, order) and torch.equal(nd, -vals)
+                          and torch.equal(nv, torch.isfinite(vals)), ms=ms, found=int(nv.sum()))
+    dense_a, ms_d = timed(torch, lambda: find_candidates_appearance(
+        m.descriptors, m.cursor, C, min_index_gap=20, max_distance=cfg.sc_max_distance))
+    got_a, ms = timed(torch, lambda: sharded_map.appearance_candidates_sharded(
+        m, mesh, C, min_index_gap=20, max_distance=cfg.sc_max_distance))
+    out["appearance"] = dict(equal=all(torch.equal(a, b) for a, b in zip(got_a, dense_a)),
+                             ms=ms, dense_ms=ms_d, valid=int(got_a.valid.sum()))
+    (pts, mask), ms = timed(torch, lambda: sharded_map.global_map_points(
+        sharded_map.shard_map_state(m, mesh), mesh))
+    live = ((idx < M)[:, None] & m.feat_mask).reshape(-1)
+    n = live.shape[0]
+    out["points"] = dict(equal=torch.equal(pts[:n], m.feat_world.reshape(-1, 2))
+                         and torch.equal(mask[:n], live) and not bool(mask[n:].any()),
+                         ms=ms, points=int(mask.sum()))
+
+    c = find_candidates(m.poses, m.cursor, C, radius_m=10.0, min_index_gap=20)
+    rot = torch.full((C,), float("nan"), device=q.device)
+    padded = dist_verify.pad_candidates(c.i, c.j, c.valid, rot, axis_size(mesh))
+    got, ms = timed(torch, lambda: dist_verify.verify_candidates_sharded(m, *padded, cfg, mesh))
+    serial, ms_s = timed(torch, lambda: verify_candidate(m, c.i, c.j, cfg, rot_override=rot))
+    ok_s = serial.ok & c.valid
+    ok = got.ok[:C]
+    rel = float((got.rel_pose[:C] - serial.rel_pose)[ok_s].abs().max()) if bool(ok_s.any()) else 0.0
+    out["verify"] = dict(candidates=C, valid=int(c.valid.sum()), loops=int(ok.sum()),
+                         ok_equal=torch.equal(ok, ok_s) and not bool(got.ok[C:].any()),
+                         max_rel_diff=rel, ms=ms, serial_ms=ms_s)
+    return out
+
+
+def parallel_segments(torch, cfg, mesh, maps):
+    """Phase 9 (e): `run_segments` over PAR_SEGMENTS segments of one rendered
+    arc (each PAR_SEG_FRAMES frames, overlapping by one) against the
+    segments run one after another by the port's step; DoH launches of
+    `run_segments`, its frames/s, and `join_segments` against the arc."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.parallel import batch_odometry as bo
+
+    step = PAR_SEG_FRAMES - 1
+    gt, frames = render_frames(cfg, 1 + PAR_SEGMENTS * step, seed=PAR_SEED)
+    seg = torch.as_tensor(np.stack([frames[k * step:k * step + PAR_SEG_FRAMES]
+                                    for k in range(PAR_SEGMENTS)]), device="cuda")
+    doh_cuda.launches = 0
+    poses, s_batched = timed(torch, lambda: bo.run_segments(seg, maps, cfg, mesh))
+    launches = doh_cuda.launches
+
+    def sequential():
+        out = np.zeros((PAR_SEGMENTS, PAR_SEG_FRAMES, 3), np.float32)
+        for d in range(PAR_SEGMENTS):
+            state = F.init_state(seg[d, 0], np.zeros(3), maps, cfg)
+            for t in range(1, PAR_SEG_FRAMES):
+                state, o = F.slam_step(state, seg[d, t], maps, cfg)
+                out[d, t] = o.pose.cpu().numpy()
+        return out
+
+    seq, s_seq = timed(torch, sequential)
+    joined = bo.join_segments(list(poses))
+    err = np.linalg.norm(joined[:, :2] - gt[:, :2], axis=1)
+    # each segment against the arc seen from its first frame: the error after
+    # its first step and at its end
+    seg_err = []
+    for d in range(PAR_SEGMENTS):
+        g = gt[d * step:d * step + PAR_SEG_FRAMES]
+        c, sn = np.cos(g[0, 2]), np.sin(g[0, 2])
+        dx, dy = g[:, 0] - g[0, 0], g[:, 1] - g[0, 1]
+        e = np.hypot(poses[d, :, 0] - (c * dx + sn * dy), poses[d, :, 1] - (-sn * dx + c * dy))
+        seg_err.append((round(float(e[1]), 4), round(float(e[-1]), 4)))
+    n_steps = PAR_SEGMENTS * step
+    return dict(equal=bool(np.array_equal(poses, seq)), finite=bool(np.isfinite(poses).all()),
+                launches=launches, fps=n_steps / (s_batched / 1e3),
+                sequential_fps=n_steps / (s_seq / 1e3), joined=joined, ate=float(
+                    np.sqrt((err ** 2).mean())), drift=float(err[-1]), frames=len(joined),
+                seg_err=seg_err)
+
+
+def parallel_launcher(torch, mesh):
+    """Phase 9 (f): the three benches in this process (reps=2), then the
+    launcher's smoke as a subprocess (its own world of one, NCCL)."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from radarslampy_tpu_torch.parallel import launch
+
+    out = {}
+    times, n = launch.bench_verify_mp(mesh, reps=2)
+    out["verify"] = (launch._stats(times), f"{n} verifications")
+    for method in ("gather", "pcg"):
+        times, cost = launch.bench_posegraph_mp(mesh, method=method, reps=2)
+        out[f"posegraph_{method}"] = (launch._stats(times), f"cost {cost:.6g}")
+    times, frames = launch.bench_odometry_mp(mesh, reps=2)
+    out["odometry"] = (launch._stats(times), f"{frames} frames, "
+                       f"{frames / np.median(times):.3f} frames/s")
+    t = time.time()
+    p = subprocess.Popen([sys.executable, "-m", "radarslampy_tpu_torch.parallel.launch",
+                          "--spawn", "1", "--smoke", "--coordinator", f"localhost:{free_port()}"],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        text, _ = p.communicate(timeout=PAR_SMOKE_S)
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    res = None
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith("{"):
+            res = json.loads(line)
+            break
+    out["smoke"] = dict(rc=p.returncode, result=res, s=time.time() - t,
+                        tail=text.strip().splitlines()[-5:])
+    return out
+
+
+def parallel_checks(torch, cfg, card, loop_state, scale, maps):
+    """Phase 9: drives the parts above in a world of one rank joined through
+    `launch.initialize` (NCCL), logs and checks what they return; returns the
+    DoH launches of (e)'s `run_segments`."""
+    import torch.distributed as dist
+
+    from radarslampy_tpu_torch.models.loopclosure import trim_map_state
+    from radarslampy_tpu_torch.parallel import launch
+    from radarslampy_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.time()
+    launch.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh()
+        log(f"parallel: world {dist.get_world_size()}, backend {dist.get_backend()}, mesh "
+            f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
+        solvers = parallel_solvers(torch, cfg, mesh, trim_map_state(loop_state.map), scale)
+        queries = parallel_queries(torch, cfg, mesh, scale["map"])
+        segs = parallel_segments(torch, cfg, mesh, maps)
+        benches = parallel_launcher(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    for r in solvers:
+        log(f"parallel ({r['part']}) " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else
+            f"{k} {[float(f'{x:.3g}') for x in v]}" if isinstance(v, list) else f"{k} {v}"
+            for k, v in r.items() if k != "part") + f" (ms: synchronised host ms on {card})")
+    bad = [r["solver"] for r in solvers if not r["ok"]]
+    if bad:
+        raise AssertionError(f"parallel (a)/(b): sharded solvers off the single-device ones: {bad}")
+    if not solvers[0]["equal"]:
+        log(f"parallel (a): the dense solve differs from the single-device one by "
+            f"{solvers[0]['max_rel']:.3g} relative: the edge list was padded to a multiple of "
+            f"the mesh, which reorders the normal equations' sums")
+    for k, v in queries.items():
+        log(f"parallel ({'d' if k == 'verify' else 'c'}) {k}: " + ", ".join(
+            f"{a} {b:.4g}" if isinstance(b, float) else f"{a} {b}" for a, b in v.items()))
+    if not all(queries[k]["equal"] for k in ("nearest", "appearance", "points")):
+        raise AssertionError("parallel (c): a sharded map query differs from the dense one")
+    v = queries["verify"]
+    if not (v["ok_equal"] and v["max_rel_diff"] <= PAR_REL and v["loops"] >= 1):
+        raise AssertionError(f"parallel (d): sharded verification off serial: {v}")
+    log(f"parallel (e): run_segments, {PAR_SEGMENTS} segments x {PAR_SEG_FRAMES} frames at "
+        f"SlamConfig(): equal bit for bit to the segments run one after another "
+        f"{segs['equal']}; {segs['fps']:.3f} frames/s (sequential {segs['sequential_fps']:.3f}) "
+        f"on {card}; doh launches {segs['launches']}; join_segments: {segs['frames']} frames, "
+        f"ATE {segs['ate']:.4f} m against the arc, end drift {segs['drift']:.4f} m, last pose "
+        f"{[round(float(x), 4) for x in segs['joined'][-1]]}; each segment's error (m) after its "
+        f"first step and at its end, against the arc from its first frame: {segs['seg_err']}")
+    if not (segs["equal"] and segs["finite"] and segs["launches"] >= PAR_SEGMENTS):
+        raise AssertionError("parallel (e): run_segments differs from the sequential runs or "
+                             "launched fewer DoH kernels than segments")
+    sm = benches.pop("smoke")
+    for k, (st, what) in benches.items():
+        log(f"parallel (f) bench {k}: median {st['median_s']} s (min {st['min_s']}, max "
+            f"{st['max_s']}, reps {st['reps']}), {what} (on {card})")
+    log(f"parallel (f) launch --spawn 1 --smoke: exit {sm['rc']} in {sm['s']:.1f} s, "
+        f"{sm['result']}")
+    if not (sm["rc"] == 0 and sm["result"] and sm["result"]["psum"] == 1.0
+            and sm["result"]["collectives"] == "nccl"):
+        raise AssertionError(f"parallel (f): the launcher's smoke failed: {sm['tail']}")
+    log(f"parallel: phase 9 in {time.time() - t0:.1f} s")
+    return segs["launches"]
+
 
 def main() -> int:
     import torch
@@ -1200,7 +1510,7 @@ def main() -> int:
     big, big_gt = revisit_map(torch, cfg, SCALE_LIVE - 12, 12, "cuda", seed=21)
     log(f"scale map: {int(big.cursor)} live keyframes of {cfg.max_keyframes}, K {cfg.k_max}, "
         f"P {cfg.pc_points_per_kf}, built in {time.time() - t:.1f} s")
-    stages = solver_stages(torch, cfg, big, big_gt)
+    stages, scale = solver_stages(torch, cfg, big, big_gt)
     for st in stages:
         log("scale " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
                                  for k, v in st.items()))
@@ -1223,11 +1533,14 @@ def main() -> int:
     # 8. the evaluation harness at SlamConfig(), scans rendered on the card
     eval_launches = eval_checks(torch, cfg, card)
 
+    # 9. the distributed back-end at world 1, on phase 7's loop and map
+    batch_launches = parallel_checks(torch, cfg, card, bk["res"].final_state, scale, maps)
+
     doh_row["launches"] = (launches + driver_launches + fmt_launches + bk["launches"]
-                           + eval_launches)
+                           + eval_launches + batch_launches)
     doh_row["launches_by_path"] = {"step": launches, "driver": driver_launches,
                                    "fmt_step": fmt_launches, "backend_driver": bk["launches"],
-                                   "eval": eval_launches}
+                                   "eval": eval_launches, "batch_odometry": batch_launches}
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [doh_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

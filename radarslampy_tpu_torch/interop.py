@@ -2,8 +2,9 @@
 
 The SLAM step has no weights; what the JAX package and the port share is
 their per-config maps, their state and the back-end's problems.  These
-functions take the JAX package's `FrameMaps`, `SlamState`, `PoseGraph`,
-`BAProblem` and `BackendState` (any object with those fields whose arrays
+functions take the JAX package's `FrameMaps`, `SlamState` (also batched),
+`PoseGraph`, `BAProblem`, `BackendState`, `LoopMatch` and
+`AppearanceCandidates` (any object with those fields whose arrays
 `np.asarray` can read: JAX arrays or numpy arrays) and give the port's
 containers on `device`, so both packages can be fed the identical input.
 Index arrays become int64 tensors.  Nothing here imports JAX.
@@ -18,7 +19,8 @@ from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.models.ba import BAProblem
 from radarslampy_tpu_torch.models.frontend import FrameMaps, MapState, SlamState
-from radarslampy_tpu_torch.models.loopclosure import BackendState
+from radarslampy_tpu_torch.models.loopclosure import BackendState, LoopMatch
+from radarslampy_tpu_torch.models.placerecog import AppearanceCandidates
 from radarslampy_tpu_torch.models.posegraph import PoseGraph
 from radarslampy_tpu_torch.ops.cuda.doh_cuda import filters_from_taps
 from radarslampy_tpu_torch.ops.grid import LogPolarMap, warp_maps_from_taps
@@ -83,14 +85,14 @@ def frame_maps_from_numpy(maps, cfg: SlamConfig, device="cuda") -> FrameMaps:
     )
 
 
-def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
-    """The JAX `SlamState` (with its `MapState`) as the port's `SlamState`."""
+def map_state_from_numpy(m, device="cuda") -> MapState:
+    """The JAX `MapState` as the port's (`frame_ids` -1 where the JAX map
+    has none)."""
     dev = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
-    m = state.map
     frame_ids = m.frame_ids if m.frame_ids is not None else \
-        np.full((cfg.max_keyframes,), -1, np.int32)
-    new_map = MapState(
+        np.full((np.shape(m.poses)[0],), -1, np.int32)
+    return MapState(
         poses=_tensor(m.poses, dev, f32),
         feat_world=_tensor(m.feat_world, dev, f32),
         feat_local=_tensor(m.feat_local, dev, f32),
@@ -103,6 +105,13 @@ def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
         pc_mask=_tensor(m.pc_mask, dev, torch.bool),
         frame_ids=_tensor(frame_ids, dev, i32),
     )
+
+
+def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
+    """The JAX `SlamState` (with its `MapState`) as the port's `SlamState`."""
+    dev = resolve_device(device)
+    f32, i32 = torch.float32, torch.int32
+    new_map = map_state_from_numpy(state.map, dev)
     return SlamState(
         pose=_tensor(state.pose, dev, f32),
         velocity=_tensor(state.velocity, dev, f32),
@@ -117,6 +126,23 @@ def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
         map=new_map,
         frame_idx=_tensor(state.frame_idx, dev, i32),
     )
+
+
+def _take(tree, d):
+    """Entry d of every array of a (nested) NamedTuple of batched arrays."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_take(x, d) for x in tree))
+    return np.asarray(tree)[d]
+
+
+def slam_states_from_numpy(states, cfg: SlamConfig, device="cuda") -> list:
+    """The JAX package's batched `SlamState` (a leading segment axis D, as
+    `parallel.batch_odometry.batched_init` gives it) as a list of D port
+    `SlamState`s, as the port's `batched_init` gives them."""
+    return [slam_state_from_numpy(_take(states, d), cfg, device)
+            for d in range(np.shape(states.pose)[0])]
 
 
 def pose_graph_from_numpy(g, device="cuda") -> PoseGraph:
@@ -149,3 +175,21 @@ def backend_state_from_numpy(bs) -> BackendState:
     return BackendState(prev_cursor=int(bs.prev_cursor),
                         edges_ij=np.array(bs.edges_ij, np.int32).reshape(-1, 2),
                         edges_meas=np.array(bs.edges_meas, np.float32).reshape(-1, 3))
+
+
+def loop_match_from_numpy(lm, device="cuda") -> LoopMatch:
+    """The JAX `LoopMatch` as the port's."""
+    dev = resolve_device(device)
+    return LoopMatch(rel_pose=_tensor(lm.rel_pose, dev, torch.float32),
+                     n_matches=_tensor(lm.n_matches, dev, torch.int32),
+                     residual=_tensor(lm.residual, dev, torch.float32),
+                     ok=_tensor(lm.ok, dev, torch.bool))
+
+
+def appearance_candidates_from_numpy(c, device="cuda") -> AppearanceCandidates:
+    """The JAX `AppearanceCandidates` as the port's."""
+    dev = resolve_device(device)
+    return AppearanceCandidates(i=_tensor(c.i, dev, torch.int64), j=_tensor(c.j, dev, torch.int64),
+                                distance=_tensor(c.distance, dev, torch.float32),
+                                rot_init=_tensor(c.rot_init, dev, torch.float32),
+                                valid=_tensor(c.valid, dev, torch.bool))

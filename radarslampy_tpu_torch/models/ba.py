@@ -27,7 +27,7 @@ import torch
 
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.models.frontend import MapState
-from radarslampy_tpu_torch.models.posegraph import (_lm_update, _sweeps_per_check,
+from radarslampy_tpu_torch.models.posegraph import (_identity, _lm_update, _sweeps_per_check,
                                                     _wrap_heading, cholesky_solve_pos,
                                                     conjugate_gradient)
 from radarslampy_tpu_torch.ops.scatter import scatter_add
@@ -252,10 +252,10 @@ def back_substitute_landmarks(Hinv, bl, U, delta_p, p: BAProblem):
     return -torch.einsum("lab,lb->la", Hinv, bl + Hlp_dp)
 
 
-def _accept(poses, landmarks, lam, cost, delta_p, delta_l, p: BAProblem, hd):
+def _accept(poses, landmarks, lam, cost, delta_p, delta_l, p: BAProblem, hd, red):
     cand_p = _wrap_heading(poses + delta_p)
     cand_l = landmarks + delta_l
-    new_cost = ba_cost(cand_p, cand_l, p, hd)
+    new_cost = red(ba_cost(cand_p, cand_l, p, hd))
     accept = new_cost < cost
     return (torch.where(accept, cand_p, poses), torch.where(accept, cand_l, landmarks),
             _lm_update(accept, lam), torch.where(accept, new_cost, cost))
@@ -276,28 +276,41 @@ def optimize_ba(p: BAProblem, cfg: SlamConfig, max_views_per_landmark: int = 8,
     return _optimize_ba_dense(p, cfg, max_views_per_landmark)
 
 
-def _optimize_ba_dense(p: BAProblem, cfg: SlamConfig, max_views_per_landmark: int):
+def _optimize_ba_dense(p: BAProblem, cfg: SlamConfig, max_views_per_landmark: int,
+                       reduce_fn=None):
+    """Dense Schur LM.  With `p`'s landmarks (and their observations) split
+    over ranks (parallel/dist_ba.py), `reduce_fn` sums the reduced system and
+    the costs over them; landmark back-substitution stays local.  Defaults to
+    the identity."""
+    red = reduce_fn or _identity
     hd = cfg.pg_huber_delta
     view_table = build_view_table(p, max_views_per_landmark)
     poses, landmarks = p.poses, p.landmarks
     lam = torch.tensor(1e-3, dtype=poses.dtype, device=poses.device)
-    cost = ba_cost(poses, landmarks, p, hd)
+    cost = red(ba_cost(poses, landmarks, p, hd))
     for _ in range(cfg.pg_iterations):
         H, bs, Hinv, bl, U = schur_reduced_system(poses, landmarks, p, view_table, hd, lam)
-        delta_p = solve_reduced(H, bs, lam)
+        delta_p = solve_reduced(red(H), red(bs), lam)
         delta_l = back_substitute_landmarks(Hinv, bl, U, delta_p, p)
         poses, landmarks, lam, cost = _accept(poses, landmarks, lam, cost, delta_p,
-                                              delta_l, p, hd)
+                                              delta_l, p, hd, red)
     return poses, landmarks, cost
 
 
-def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats=None):
+def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats=None,
+                     reduce_fn=None):
     """Matrix-free Schur BA.  The reduced operator S = Hpp - U Hll^-1 U^T is
     applied as
         S v = Hpp_m v_m - sum_{o in m} U_o Hinv_l(o) t_l(o),
         t_l = sum_{o in l} U_o^T v_m(o)
     (two scatter-adds per sweep); the preconditioner is the exact block
-    diagonal of S plus the pose-0 anchor and the damping."""
+    diagonal of S plus the pose-0 anchor and the damping.
+
+    `reduce_fn` sums landmark-parallel contributions over ranks when `p`
+    holds only this rank's landmarks and their observations
+    (parallel/dist_ba.py): only [M, 3] and [M, 3, 3] arrays cross ranks, and
+    every value a branch reads is reduced.  Defaults to the identity; with
+    `reduce_fn` the sweeps run eagerly (no CUDA graph)."""
     dtype, dev = p.poses.dtype, p.poses.device
     M, L = p.poses.shape[0], p.landmarks.shape[0]
     hd = cfg.pg_huber_delta
@@ -308,14 +321,16 @@ def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats
     fix[0] = 1e8
     zeros_m3 = torch.zeros((M, 3), dtype=dtype, device=dev)
     zeros_l2 = torch.zeros((L, 2), dtype=dtype, device=dev)
+    red = reduce_fn or _identity
     poses, landmarks = p.poses, p.landmarks
     lam = torch.tensor(1e-3, dtype=dtype, device=dev)
-    cost = ba_cost(poses, landmarks, p, hd)
+    cost = red(ba_cost(poses, landmarks, p, hd))
     total = 0
     for _ in range(cfg.pg_iterations):
         Hpp, bs, Hinv, bl, U = schur_blocks(poses, landmarks, p, hd, lam)
-        UHU = scatter_add(torch.zeros((M, 3, 3), dtype=dtype, device=dev), p.obs_pose,
-                          torch.einsum("oab,obc,odc->oad", U, Hinv[p.obs_lm], U))
+        Hpp, bs = red(Hpp), red(bs)
+        UHU = red(scatter_add(torch.zeros((M, 3, 3), dtype=dtype, device=dev), p.obs_pose,
+                              torch.einsum("oab,obc,odc->oad", U, Hinv[p.obs_lm], U)))
         S_diag = Hpp - UHU
         damp = lam * (torch.diagonal(S_diag, dim1=1, dim2=2) + 1e-9)
         pinv = torch.linalg.inv(S_diag + fix[:, None, None] * eye3 + torch.diag_embed(damp))
@@ -323,14 +338,15 @@ def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats
         def afun(v):
             t = scatter_add(zeros_l2, p.obs_lm, torch.einsum("oab,oa->ob", U, v[p.obs_pose]))
             s = torch.einsum("lab,lb->la", Hinv, t)
-            Uv = scatter_add(zeros_m3, p.obs_pose, torch.einsum("oab,ob->oa", U, s[p.obs_lm]))
+            Uv = red(scatter_add(zeros_m3, p.obs_pose,
+                                 torch.einsum("oab,ob->oa", U, s[p.obs_lm])))
             return torch.einsum("mab,mb->ma", Hpp, v) - Uv + fix[:, None] * v + damp * v
 
-        delta_p, sweeps = conjugate_gradient(afun, pinv, bs, n_cg, spc)
+        delta_p, sweeps = conjugate_gradient(afun, pinv, bs, n_cg, spc, replay=reduce_fn is None)
         total += sweeps
         delta_l = back_substitute_landmarks(Hinv, bl, U, delta_p, p)
         poses, landmarks, lam, cost = _accept(poses, landmarks, lam, cost, delta_p,
-                                              delta_l, p, hd)
+                                              delta_l, p, hd, red)
     if stats is not None:
         stats["cg_sweeps"] = total
     return poses, landmarks, cost

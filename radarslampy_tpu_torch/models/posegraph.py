@@ -150,16 +150,23 @@ def _edge_robust_err(poses, g: PoseGraph):
     return e * g.edge_mask.to(poses.dtype)
 
 
-def _huber_schedule(g: PoseGraph, cfg: SlamConfig):
+def _identity(x):
+    return x
+
+
+def _huber_schedule(g: PoseGraph, cfg: SlamConfig, reduce_max_fn=None):
     """Per-LM-iteration Huber deltas [N]: annealed geometrically from the
     largest initial robustified edge error down to cfg.pg_huber_delta (GNC),
-    constant when cfg.pg_gnc_anneal is off."""
+    constant when cfg.pg_gnc_anneal is off.  With the edges split over ranks,
+    `reduce_max_fn` takes the largest error over them (a sum would count it
+    once per rank)."""
     dtype, dev = g.poses.dtype, g.poses.device
     hd = torch.tensor(cfg.pg_huber_delta, dtype=dtype, device=dev)
     N = cfg.pg_iterations
     if not cfg.pg_gnc_anneal:
         return hd.expand(N).clone()
-    start = torch.maximum(torch.max(_edge_robust_err(g.poses, g)), hd)
+    e0 = (reduce_max_fn or _identity)(torch.max(_edge_robust_err(g.poses, g)))
+    start = torch.maximum(e0, hd)
     frac = torch.arange(N, dtype=dtype, device=dev) / max(N - 1, 1)
     return torch.exp((1.0 - frac) * torch.log(start) + frac * torch.log(hd))
 
@@ -198,24 +205,29 @@ def optimize_pose_graph(g: PoseGraph, cfg: SlamConfig, method: str = "auto", sta
     return _optimize_pose_graph_dense(g, cfg)
 
 
-def _optimize_pose_graph_dense(g: PoseGraph, cfg: SlamConfig):
+def _optimize_pose_graph_dense(g: PoseGraph, cfg: SlamConfig, reduce_fn=None,
+                               reduce_max_fn=None):
+    """Dense LM.  With `g`'s edges split over ranks (parallel/dist_posegraph.py),
+    `reduce_fn` sums the edge-parallel H, b and costs over them and
+    `reduce_max_fn` takes the GNC start; both default to the identity."""
+    red = reduce_fn or _identity
     poses = g.poses
     lam = torch.tensor(1e-4, dtype=poses.dtype, device=poses.device)
-    for hd_k in _huber_schedule(g, cfg):
+    for hd_k in _huber_schedule(g, cfg, reduce_max_fn):
         # the Huber delta changes across iterations (GNC), so the acceptance
         # test recomputes the current cost under this iteration's delta
-        cost = graph_cost(poses, g, hd_k)
+        cost = red(graph_cost(poses, g, hd_k))
         H, b = assemble_normal_equations(poses, g, hd_k)
-        H, b = _gauge_and_mask(H, b, g.node_mask)
+        H, b = _gauge_and_mask(red(H), red(b), g.node_mask)
         A = H + lam * torch.diag(torch.diagonal(H) + 1e-9)
         cand = _wrap_heading(poses - cholesky_solve_pos(A, b).reshape(-1, 3))
-        accept = graph_cost(cand, g, hd_k) < cost
+        accept = red(graph_cost(cand, g, hd_k)) < cost
         poses = torch.where(accept, cand, poses)
         lam = _lm_update(accept, lam)
-    return poses, graph_cost(poses, g, cfg.pg_huber_delta)
+    return poses, red(graph_cost(poses, g, cfg.pg_huber_delta))
 
 
-def conjugate_gradient(afun, pinv, b, n_cg: int, sweeps_per_check: int):
+def conjugate_gradient(afun, pinv, b, n_cg: int, sweeps_per_check: int, replay: bool = True):
     """Block-Jacobi PCG for A x = -b (A applied by `afun`, the [N, 3, 3] inverse
     diagonal blocks in `pinv`), x0 = 0, up to `n_cg` sweeps, stopping when
     r.z <= 1e-10 r0.z0 or <= 1e-20 -> (x, sweeps run).
@@ -225,7 +237,9 @@ def conjugate_gradient(afun, pinv, b, n_cg: int, sweeps_per_check: int):
     `sweeps_per_check`, the number of sweeps between two host reads of the
     rule.  On a CUDA device the sweeps after the first `sweeps_per_check` are
     replayed from a CUDA graph of that many sweeps: the same kernels on the
-    same buffers, without the host's launch work for each of them."""
+    same buffers, without the host's launch work for each of them.  `replay`
+    False keeps every sweep eager: the sharded solvers' `afun` runs a
+    collective, which is not captured."""
     def minv(v):
         return torch.einsum("mab,mb->ma", pinv, v)
 
@@ -263,7 +277,7 @@ def conjugate_gradient(afun, pinv, b, n_cg: int, sweeps_per_check: int):
     state = sweeps([torch.zeros_like(b), rr, z, rz0,
                     torch.zeros((), dtype=torch.int64, device=b.device)])
     more, n = check(state)
-    if more and b.is_cuda:
+    if more and replay and b.is_cuda:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for dst, src in zip(state, sweeps(state)):
@@ -284,15 +298,24 @@ def _sweeps_per_check(cfg: SlamConfig, sweeps_per_check):
 
 
 def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=None,
-                             stats=None):
+                             stats=None, reduce_fn=None, reduce_max_fn=None):
     """Matrix-free LM: each step solves (H + lam diag(H)) delta = -b by PCG
     on the gauge-projected system (node 0 and dead nodes frozen exactly, not
     by a 1e8 penalty, which float32 CG cannot survive).  Per sweep: one
-    gather, two batched [E,3,3]x[E,3] products and one scatter-add."""
+    gather, two batched [E,3,3]x[E,3] products and one scatter-add.
+
+    `reduce_fn` sums edge-parallel contributions over ranks when `g` holds
+    only this rank's edges (parallel/dist_posegraph.py): only [M, 3]-sized
+    vectors and [M, 3, 3] blocks cross ranks, one [M, 3] sum per sweep, and
+    every value a branch reads (the CG stopping rule, the LM acceptance) is
+    reduced, so all ranks take the same branches.  `reduce_max_fn` takes the
+    GNC start.  Both default to the identity; with `reduce_fn` the sweeps run
+    eagerly (no CUDA graph)."""
     dtype, dev = g.poses.dtype, g.poses.device
     M = g.poses.shape[0]
     n_cg = cfg.pg_cg_iterations or 8 * M
     spc = _sweeps_per_check(cfg, sweeps_per_check)
+    red = reduce_fn or _identity
     ei, ej = g.edges_ij[:, 0], g.edges_ij[:, 1]
     eij = torch.cat([ei, ej])
     free = (g.node_mask & (torch.arange(M, device=dev) > 0)).to(dtype)[:, None]
@@ -301,12 +324,12 @@ def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=Non
     poses = g.poses
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
     total = 0
-    for hd_k in _huber_schedule(g, cfg):
+    for hd_k in _huber_schedule(g, cfg, reduce_max_fn):
         r, Ji, Jj, W = edge_system(poses, g, hd_k)
-        b = _gradient(r, Ji, Jj, W, ei, ej, M) * free
-        D = scatter_add(torch.zeros((M, 3, 3), dtype=dtype, device=dev), eij,
-                        torch.cat([torch.einsum("eab,eac->ebc", Ji, W[:, :, None] * Ji),
-                                   torch.einsum("eab,eac->ebc", Jj, W[:, :, None] * Jj)]))
+        b = red(_gradient(r, Ji, Jj, W, ei, ej, M)) * free
+        D = red(scatter_add(torch.zeros((M, 3, 3), dtype=dtype, device=dev), eij,
+                            torch.cat([torch.einsum("eab,eac->ebc", Ji, W[:, :, None] * Ji),
+                                       torch.einsum("eab,eac->ebc", Jj, W[:, :, None] * Jj)])))
         damp = lam * (torch.diagonal(D, dim1=1, dim2=2) + 1e-9)
         P = (D + torch.diag_embed(damp)) * free[..., None] + (1.0 - free[..., None]) * eye3
         pinv = torch.linalg.inv(P)
@@ -315,20 +338,20 @@ def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=Non
             vf = v * free
             u = W * (torch.einsum("eab,eb->ea", Ji, vf[ei])
                      + torch.einsum("eab,eb->ea", Jj, vf[ej]))
-            Hv = scatter_add(zeros_m3, eij, torch.cat([torch.einsum("eab,ea->eb", Ji, u),
-                                                       torch.einsum("eab,ea->eb", Jj, u)]))
+            Hv = red(scatter_add(zeros_m3, eij, torch.cat([torch.einsum("eab,ea->eb", Ji, u),
+                                                           torch.einsum("eab,ea->eb", Jj, u)])))
             return (Hv + damp * vf) * free + (1.0 - free) * v
 
-        delta, sweeps = conjugate_gradient(afun, pinv, b, n_cg, spc)
+        delta, sweeps = conjugate_gradient(afun, pinv, b, n_cg, spc, replay=reduce_fn is None)
         total += sweeps
-        cost = graph_cost(poses, g, hd_k)
+        cost = red(graph_cost(poses, g, hd_k))
         cand = _wrap_heading(poses + delta)
-        accept = graph_cost(cand, g, hd_k) < cost
+        accept = red(graph_cost(cand, g, hd_k)) < cost
         poses = torch.where(accept, cand, poses)
         lam = _lm_update(accept, lam)
     if stats is not None:
         stats["cg_sweeps"] = total
-    return poses, graph_cost(poses, g, cfg.pg_huber_delta)
+    return poses, red(graph_cost(poses, g, cfg.pg_huber_delta))
 
 
 def odometry_graph_from_map(map_poses, cursor, max_edges=None,

@@ -159,3 +159,19 @@ def test_auto_picks_dense_up_to_512_poses(problems, monkeypatch):
     tba.optimize_ba(tp, SlamConfig())
     tba.optimize_ba(tp._replace(poses=torch.zeros(513, 3)), SlamConfig())
     assert calls == ["dense", "pcg"]
+
+
+@pytest.mark.parametrize("method", ["dense", "pcg"])
+def test_identity_reduction_hook_changes_no_bit(problems, method):
+    """The sharded solvers' hook `reduce_fn`, given the identity, returns
+    what the solvers return without it, bit for bit."""
+    _, tp = problems["loop_map"]
+    cfg = SlamConfig(pg_iterations=10)
+    if method == "dense":
+        plain, hooked = (tba._optimize_ba_dense(tp, cfg, 8, **kw)
+                         for kw in ({}, dict(reduce_fn=lambda x: x)))
+    else:
+        plain, hooked = (tba._optimize_ba_pcg(tp, cfg, **kw)
+                         for kw in ({}, dict(reduce_fn=lambda x: x)))
+    for a, b in zip(plain, hooked):
+        assert torch.equal(a, b)

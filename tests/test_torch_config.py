@@ -125,3 +125,55 @@ def test_fakedata_copy_corridor_world_renders_identically(mode):
         sa = fakedata.render_polar_scan(*wa, p, cfg, velocity=vel, rng=rngs[0], mode=mode)
         sb = jax_fakedata.render_polar_scan(*wb, p, jcfg, velocity=vel, rng=rngs[1], mode=mode)
         np.testing.assert_array_equal(sa, sb)
+
+
+def test_make_mesh_defaults_to_cuda_and_needs_a_process_group():
+    """Like the entry points, a mesh defaults to the card: without one it
+    raises unless device="cpu" is asked for; and it needs a process group."""
+    from radarslampy_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="process group" if torch.cuda.is_available()
+                       else "device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(device="cpu")
+
+
+def test_make_mesh_over_a_group_of_one(tmp_path):
+    """A world of one rank (gloo, a file store) is a real group: the mesh
+    has the JAX package's axis names and its collectives run."""
+    import torch.distributed as dist
+
+    from radarslampy_tpu_torch.parallel import launch
+    from radarslampy_tpu_torch.parallel.mesh import (all_gather, axis_size, make_mesh,
+                                                     make_mesh_2d, psum, shard_along)
+
+    assert launch.initialize(f"file://{tmp_path}/store", 1, 0, cpu=True) == "cpu"
+    try:
+        mesh = make_mesh(device="cpu")
+        assert mesh.device_type == "cpu" and mesh.mesh_dim_names == ("kf",)
+        assert axis_size(mesh) == 1 and float(psum(torch.tensor(2.5), mesh)) == 2.5
+        assert torch.equal(all_gather(torch.tensor([True, False]), mesh),
+                           torch.tensor([True, False]))
+        assert torch.equal(shard_along(torch.arange(5), mesh), torch.arange(5))
+        assert make_mesh_2d(1, 1, device="cpu").mesh_dim_names == ("kf", "batch")
+        with pytest.raises(ValueError):
+            make_mesh(2, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_launcher_defaults_to_nccl_on_the_card(tmp_path):
+    """The launcher runs NCCL on the card; gloo only with --cpu.  Without a
+    card it raises before joining any group unless --cpu is given."""
+    from radarslampy_tpu_torch.parallel import launch
+
+    assert launch.backend() == "nccl" and launch.backend(cpu=True) == "gloo"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="--cpu"):
+        launch.initialize(f"file://{tmp_path}/store", 1, 0)
+    with pytest.raises(RuntimeError, match="--cpu"):
+        launch.main(["--proc-id", "0", "--nproc", "1", "--smoke",
+                     "--coordinator", f"file://{tmp_path}/store"])
+    assert not (tmp_path / "store").exists()

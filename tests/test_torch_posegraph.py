@@ -156,3 +156,18 @@ def test_odometry_graph_from_map_equal():
         np.testing.assert_allclose(g.edges_meas.numpy(), np.asarray(jg.edges_meas),
                                    atol=1e-6, rtol=0)
         assert float(tpg.graph_cost(g.poses, g, 1.0)) < 1e-4
+
+
+@pytest.mark.parametrize("method", ["dense", "pcg"])
+def test_identity_reduction_hooks_change_no_bit(ring, method):
+    """The sharded solvers' hooks (`reduce_fn`, `reduce_max_fn`), given the
+    identity, return what the solvers return without them, bit for bit."""
+    _, tg = ring
+    cfg = SlamConfig(pg_iterations=25)
+    solve = {"dense": tpg._optimize_pose_graph_dense, "pcg": tpg._optimize_pose_graph_pcg}[method]
+    plain = solve(tg, cfg)
+    hooked = solve(tg, cfg, reduce_fn=lambda x: x, reduce_max_fn=lambda x: x)
+    for a, b in zip(plain, hooked):
+        assert torch.equal(a, b)
+    assert torch.equal(tpg._huber_schedule(tg, cfg),
+                       tpg._huber_schedule(tg, cfg, reduce_max_fn=lambda x: x))
