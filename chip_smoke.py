@@ -23,8 +23,8 @@ Phases, one line each (elapsed seconds in brackets):
      small config on the card and on the CPU, which must agree;
   5. the driver: `RadarSlamSystem(...).run()` at `SlamConfig()` over phase
      4's frames, fed through `frame_source` from a sequence directory that
-     holds radar.timestamps and a GT CSV (no PNGs: the card machine may lack
-     PIL); its trajectory and final state equal phase 4's loop bit for bit;
+     holds radar.timestamps and a GT CSV (phase 10 runs it over PNGs); its
+     trajectory and final state equal phase 4's loop bit for bit;
      a run checkpointed at frame 6 and resumed equals the straight run bit
      for bit; the metrics JSONL; ATE, drift and fps; then one driver step
      under torch.profiler, whose `record_function` ranges inside slam_step
@@ -74,7 +74,22 @@ Phases, one line each (elapsed seconds in brackets):
      `SlamConfig()` over 4 segments of 8 frames of one arc, equal bit for
      bit to the segments run one after another, with its frames/s, DoH
      launches and `join_segments`; (f) the launcher's three benches (2 reps)
-     and `python -m radarslampy_tpu_torch.parallel.launch --spawn 1 --smoke`.
+     and `python -m radarslampy_tpu_torch.parallel.launch --spawn 1 --smoke`;
+ 10. the PNG path at `SlamConfig()`: (a) the host's g++, libpng headers,
+     native loader (with g++'s first error line where it does not build),
+     PIL, matplotlib and ffmpeg; (b) phase 4's frames written as Oxford PNGs
+     (`sim/oxford_files.write_sequence`); (c) each PNG decoded by the native
+     decoder (where libpng exists) and by PIL, equal bit for bit to the
+     written bytes and to each other, `NativeLoader`'s order, and the frames
+     per second of `NativeLoader`, `_Prefetcher` and one-thread PIL over the
+     same files; (d) `RadarSlamSystem(...).run()` over the PNGs, equal bit for
+     bit to phase 5's run, with its decoder, fps and DoH launches; (e) the CLI
+     over them in a subprocess: the JAX CLI's summary keys, (d)'s rmse; (f)
+     `utils/profile_stages.profile()` with reduced counts (each stage's us,
+     their sum, the fused step, the step with dispatch), a `StageTimer` over
+     5 steps and a `device_trace` of one step holding CUDA kernel events;
+     (g) `run(viz_dir, viz_every=3)`'s figures where matplotlib imports, else
+     one line saying so.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -85,6 +100,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1257,6 +1273,289 @@ def parallel_checks(torch, cfg, card, loop_state, scale, maps):
     return segs["launches"]
 
 
+# Phase 10: the PNG path.  The summary keys of `python -m radarslampy_tpu`
+# without back-end flags (radarslampy_tpu/__main__.py, `summary`).
+JAX_CLI_KEYS = ["sequence", "frames", "keyframes", "fps", "rmse_vs_gt_m"]
+DECODE_REPS = 3     # timed passes over the sequence's PNGs per decoder (median)
+# profile_stages at SlamConfig(): fewer calls than its CLI's 200 x 5
+PROFILE_CALLS, PROFILE_TRIALS, PROFILE_ITERS = 10, 3, 10
+TIMER_STEPS = 5
+CLI_TIMEOUT_S = 300
+
+
+def host_facts():
+    """Phase 10 (a): the host's g++, libpng headers, native loader, PIL,
+    matplotlib and ffmpeg."""
+    import importlib
+
+    from radarslampy_tpu_torch.io import native_loader
+
+    gxx = shutil.which("g++")
+    png_h = gxx is not None and subprocess.run(
+        [gxx, "-x", "c++", "-E", "-o", "/dev/null", "-"], input="#include <png.h>\n",
+        capture_output=True, text=True, timeout=60).returncode == 0
+    native = native_loader.native_available()
+    error = next((line.strip() for line in native_loader.build_log.splitlines()
+                  if "error" in line.lower()), native_loader.build_log.strip()[:200])
+    mods = {}
+    for mod in ("PIL", "matplotlib"):
+        try:
+            mods[mod] = getattr(importlib.import_module(mod), "__version__", "?")
+        except ImportError:
+            mods[mod] = None
+    return dict(gxx=gxx, png_h=png_h, native=native, error=error, pil=mods["PIL"],
+                matplotlib=mods["matplotlib"], ffmpeg=shutil.which("ffmpeg"))
+
+
+def decode_fps(decode_all, n):
+    """Frames per second of decode_all() over `n` files, median of DECODE_REPS."""
+    times = []
+    for _ in range(DECODE_REPS):
+        t = time.perf_counter()
+        got = decode_all()
+        times.append(time.perf_counter() - t)
+        if len(got) != n:
+            raise AssertionError(f"decoded {len(got)} of {n} frames")
+    return n / statistics.median(times)
+
+
+def check_decode(cfg, paths, frames, stamps, facts):
+    """Phase 10 (c): every PNG through the native decoder (where it builds)
+    and PIL against the written bytes; the decoders' frames per second."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.io import native_loader, oxford
+    from radarslampy_tpu_torch.models.system import _Prefetcher
+
+    written = frames.copy()
+    written[:, :, cfg.clipped_range_bins:] = 0
+    az_err = 0.0
+    for i, path in enumerate(paths):
+        pil = oxford.decode_radar_png(path, cfg, raw_u8=True)
+        if not (np.array_equal(pil.power, written[i]) and pil.frame_timestamp == stamps[i]):
+            raise AssertionError(f"PIL decode of frame {i} != the written bytes")
+        if facts["native"]:
+            nat = native_loader.decode_radar_png_native(path, cfg, raw_u8=True)
+            if not (np.array_equal(nat.power, written[i]) and nat.frame_timestamp == stamps[i]
+                    and np.array_equal(nat.timestamps, pil.timestamps)
+                    and np.array_equal(nat.valid, pil.valid)):
+                raise AssertionError(f"native decode of frame {i} != PIL's / the written bytes")
+            az_err = max(az_err, float(np.abs(nat.azimuths - pil.azimuths).max()))
+    if az_err > 1e-6:
+        raise AssertionError(f"native azimuths off PIL's by {az_err}")
+    fps = {}
+    if facts["native"]:
+        pool = list(native_loader.NativeLoader(paths, cfg, raw_u8=True))
+        if [f.frame_timestamp for f in pool] != list(stamps) or not all(
+                np.array_equal(f.power, w) for f, w in zip(pool, written)):
+            raise AssertionError("NativeLoader did not deliver every frame in order")
+        fps["NativeLoader"] = decode_fps(
+            lambda: list(native_loader.NativeLoader(paths, cfg, raw_u8=True)), len(paths))
+    fps["_Prefetcher"] = decode_fps(lambda: list(_Prefetcher(paths, cfg, raw_u8=True)),
+                                    len(paths))
+    fps["PIL, one thread"] = decode_fps(
+        lambda: [oxford.decode_radar_png(p, cfg, raw_u8=True) for p in paths], len(paths))
+    return dict(az_err=az_err, fps=fps)
+
+
+def png_driver(torch, cfg, root, dev="cuda"):
+    """Phase 10 (d): `RadarSlamSystem(...).run()` over the PNGs; records which
+    decoder the driver built and its DoH launches."""
+    from radarslampy_tpu_torch import RadarSlamSystem
+    from radarslampy_tpu_torch.models import system as S
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+
+    used = []
+    real = {name: getattr(S, name) for name in ("NativeLoader", "_Prefetcher")}
+
+    def recording(name):
+        def make(*args, **kwargs):
+            used.append(name)
+            return real[name](*args, **kwargs)
+        return make
+
+    try:
+        for name in real:
+            setattr(S, name, recording(name))
+        system = RadarSlamSystem("synth", root, cfg, device=dev)
+        doh_cuda.launches = 0
+        t = time.time()
+        res = system.run()
+        wall_s = time.time() - t
+        launches = doh_cuda.launches
+    finally:
+        for name, cls in real.items():
+            setattr(S, name, cls)
+    return dict(res=res, wall_s=wall_s, launches=launches, decoder=used)
+
+
+def png_cli(root):
+    """Phase 10 (e): `python -m radarslampy_tpu_torch synth --data-root root
+    --metrics m.jsonl` in a subprocess; its summary and its DoH launches (the
+    subprocess prints its wrapper's count on exit)."""
+    metrics = f"{root}/cli_metrics.jsonl"
+    code = ("import runpy, sys\n"
+            "from radarslampy_tpu_torch.ops.cuda import doh_cuda\n"
+            "sys.argv = ['radarslampy_tpu_torch'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('radarslampy_tpu_torch', run_name='__main__')\n"
+            "finally:\n"
+            "    print(f'doh_launches={doh_cuda.launches}', file=sys.stderr)\n")
+    t = time.time()
+    p = subprocess.run([sys.executable, "-c", code, "synth", "--data-root", root,
+                        "--metrics", metrics], capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if p.returncode != 0:
+        raise AssertionError(f"the CLI exited {p.returncode}: {p.stderr[-2000:]}")
+    summary = json.loads(p.stdout.strip().splitlines()[-1])
+    launches = int(re.findall(r"doh_launches=(\d+)", p.stderr)[-1])
+    rows = sum(1 for _ in open(metrics))
+    return dict(summary=summary, launches=launches, rows=rows, s=time.time() - t)
+
+
+def stage_profile(torch, cfg, frames, tmp):
+    """Phase 10 (f): `profile_stages.profile()` at SlamConfig() with reduced
+    counts; a StageTimer over TIMER_STEPS steps; a device_trace of one step."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.utils import profile_stages
+    from radarslampy_tpu_torch.utils.profiling import StageTimer, device_trace
+
+    doh_cuda.launches = 0
+    t = time.time()
+    prof = profile_stages.profile(cfg, iters=PROFILE_ITERS, calls=PROFILE_CALLS,
+                                  trials=PROFILE_TRIALS)
+    prof_s, launches = time.time() - t, doh_cuda.launches
+
+    maps = F.build_frame_maps(cfg)
+    timer = StageTimer()
+    state = F.init_state(frames[0], np.zeros(3), maps, cfg)
+    for f in frames[1:1 + TIMER_STEPS]:
+        with timer.stage("slam_step", sync=state):
+            state, out = F.slam_step(state, f, maps, cfg)
+    logdir = f"{tmp}/trace"
+    with device_trace(logdir):
+        F.slam_step(state, frames[1 + TIMER_STEPS], maps, cfg)
+        torch.cuda.synchronize()
+    files = os.listdir(logdir)
+    events = json.load(open(f"{logdir}/{files[0]}"))["traceEvents"] if len(files) == 1 else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return dict(prof=prof, prof_s=prof_s, launches=launches, timer=timer.report(),
+                trace_files=files, trace_kernels=len(kernels),
+                trace_names=sorted({e["name"] for e in kernels})[:5])
+
+
+def png_checks(torch, cfg, card, gt, frames, straight):
+    """Phase 10: the PNG path at SlamConfig() over phase 4's frames; logs and
+    checks (a)-(g); returns the DoH launches of the PNG driver, the CLI and
+    profile_stages."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.io import oxford
+    from radarslampy_tpu_torch.sim import oxford_files
+
+    t0 = time.time()
+    facts = host_facts()
+    log(f"png (a) g++: {facts['gxx'] or 'not on PATH'}")
+    log(f"png (a) libpng headers (#include <png.h> through g++): "
+        f"{'found' if facts['png_h'] else 'not found'}")
+    log(f"png (a) native loader builds and loads: {facts['native']}"
+        + ("" if facts["native"] else f"; first error: {facts['error']}"))
+    log(f"png (a) PIL: {facts['pil'] or 'not installed'}; matplotlib: "
+        f"{facts['matplotlib'] or 'not installed'}; ffmpeg: {facts['ffmpeg'] or 'not on PATH'}")
+    if facts["pil"] is None:
+        raise AssertionError("PIL is missing: the PNG path cannot run")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        stamps = oxford_files.write_sequence(tmp, "synth", gt, cfg, frames_u8=frames)
+        sp = oxford.sequence_paths(tmp, "synth")
+        paths = oxford.radar_image_paths(sp["radar"], sp["timestamps"])
+        log(f"png (b) wrote {len(paths)} Oxford PNGs ({cfg.num_azimuths} x "
+            f"{11 + cfg.num_range_bins} u8) of phase 4's frames in {time.time() - t:.2f} s")
+
+        dec = check_decode(cfg, paths, frames, stamps, facts)
+        if facts["native"]:
+            log(f"png (c) decode_radar_png_native(raw_u8=True) == the written bytes == "
+                f"io/oxford.decode_radar_png, bit for bit, on all {len(paths)} frames "
+                f"(timestamps and valid flags equal; azimuths within {dec['az_err']:.2e} rad); "
+                f"NativeLoader delivered every frame in order")
+        else:
+            log(f"png (c) native decode not run: libpng is absent here ({facts['error']}); "
+                f"io/oxford.decode_radar_png (PIL) == the written bytes on all {len(paths)} "
+                f"frames")
+        log("png (c) decode frames/s over the same files (raw u8, median of "
+            f"{DECODE_REPS} passes, on {card}'s host): " + "; ".join(
+                f"{k} {v:.1f}" for k, v in dec["fps"].items())
+            + ("" if facts["native"] else "; NativeLoader not available"))
+
+        drv = png_driver(torch, cfg, tmp)
+        r = drv["res"]
+        ts, est = r.trajectory.as_arrays()
+        ts5, est5 = straight.trajectory.as_arrays()
+        if not (np.array_equal(ts, ts5) and np.array_equal(est, est5)
+                and states_equal(torch, r.final_state, straight.final_state)):
+            raise AssertionError("the driver over PNGs != phase 5's frame_source run")
+        expected = ["NativeLoader"] if facts["native"] else ["_Prefetcher"]
+        if drv["decoder"] != expected or drv["launches"] < 1:
+            raise AssertionError(f"the PNG driver decoded with {drv['decoder']} (expected "
+                                 f"{expected}), doh launches {drv['launches']}")
+        log(f"png (d) driver over the PNGs, decoded by {drv['decoder'][0]}"
+            + ("" if facts["native"] else " (no libpng)")
+            + f": {r.frames} frames in {drv['wall_s']:.2f} s, fps {r.fps:.3f} on {card}; "
+            f"ATE {r.rmse_vs_gt:.4f} m; == phase 5's frame_source run bit for bit "
+            f"(trajectory, every state leaf); doh launches {drv['launches']}")
+
+        cli = png_cli(tmp)
+        s = cli["summary"]
+        if not (list(s) == JAX_CLI_KEYS and s["frames"] == r.frames
+                and s["rmse_vs_gt_m"] == round(r.rmse_vs_gt, 3)
+                and s["keyframes"] == r.n_keyframes and cli["rows"] == r.frames - 1
+                and cli["launches"] == drv["launches"]):
+            raise AssertionError(f"the CLI's summary {s}, {cli['rows']} metrics rows, "
+                                 f"{cli['launches']} doh launches, against (d)")
+        log(f"png (e) python -m radarslampy_tpu_torch synth --metrics (subprocess, "
+            f"{cli['s']:.1f} s): {json.dumps(s)}; the JAX CLI's keys, rmse == (d)'s; "
+            f"{cli['rows']} metrics rows; doh launches {cli['launches']}")
+
+        sp10 = stage_profile(torch, cfg, frames, tmp)
+        p = sp10["prof"]
+        log(f"png (f) profile_stages.profile(SlamConfig(), calls={PROFILE_CALLS}, "
+            f"trials={PROFILE_TRIALS}, iters={PROFILE_ITERS}) in {sp10['prof_s']:.1f} s on "
+            f"{p['device_name']} ({card}), us per call: " + ", ".join(
+                f"{k} {v['us']}" for k, v in p["stages"].items()))
+        log(f"png (f) sum of stages {p['sum_of_stages_us']} us, fused step "
+            f"{p['fused_step_us']} us, step with dispatch and sync "
+            f"{p['fused_step_wall_us_incl_dispatch']} us; doh launches {sp10['launches']}")
+        us = [v["us"] for v in p["stages"].values()]
+        if not (p["platform"] == "cuda" and all(np.isfinite(us)) and min(us) > 0
+                and sp10["launches"] >= 1):
+            raise AssertionError(f"profile_stages: {p}, doh launches {sp10['launches']}")
+        log(f"png (f) StageTimer over {TIMER_STEPS} driver steps: {json.dumps(sp10['timer'])}")
+        log(f"png (f) device_trace of one step: {sp10['trace_files']}, "
+            f"{sp10['trace_kernels']} CUDA kernel events (e.g. {sp10['trace_names']})")
+        if sp10["timer"]["slam_step"]["calls"] != TIMER_STEPS or sp10["trace_kernels"] < 1:
+            raise AssertionError("StageTimer or device_trace recorded nothing")
+
+        if facts["matplotlib"] is None:
+            log("png (g) figures not run: matplotlib is not installed here; the CPU tests "
+                "(tests/test_torch_viz.py) hold them")
+        else:
+            from radarslampy_tpu_torch import RadarSlamSystem
+
+            viz = f"{tmp}/viz"
+            RadarSlamSystem("synth", tmp, cfg).run(viz_dir=viz, viz_every=3)
+            names = sorted(os.listdir(viz))
+            want = [f"frame_{n:06d}.jpg" for n in range(3, len(paths), 3)]
+            if not (set(want) | {"map.png"}) <= set(names):
+                raise AssertionError(f"run(viz_dir) wrote {names}, expected {want} + map.png")
+            log(f"png (g) run(viz_dir, viz_every=3) wrote {names}")
+    log(f"png: phase 10 in {time.time() - t0:.1f} s")
+    return drv["launches"], cli["launches"], sp10["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1536,11 +1835,17 @@ def main() -> int:
     # 9. the distributed back-end at world 1, on phase 7's loop and map
     batch_launches = parallel_checks(torch, cfg, card, bk["res"].final_state, scale, maps)
 
-    doh_row["launches"] = (launches + driver_launches + fmt_launches + bk["launches"]
-                           + eval_launches + batch_launches)
-    doh_row["launches_by_path"] = {"step": launches, "driver": driver_launches,
-                                   "fmt_step": fmt_launches, "backend_driver": bk["launches"],
-                                   "eval": eval_launches, "batch_odometry": batch_launches}
+    # 10. the PNG path: decode, the driver and the CLI over PNGs, the stage
+    # profiler, the figures
+    png_launches, cli_launches, profile_launches = png_checks(
+        torch, cfg, card, gt, frames, straight)
+
+    by_path = {"step": launches, "driver": driver_launches, "fmt_step": fmt_launches,
+               "backend_driver": bk["launches"], "eval": eval_launches,
+               "batch_odometry": batch_launches, "png_driver": png_launches,
+               "cli": cli_launches, "profile_stages": profile_launches}
+    doh_row["launches"] = sum(by_path.values())
+    doh_row["launches_by_path"] = by_path
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [doh_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,8 @@ def main(argv=None):
     ap.add_argument("--data-root", default="data")
     ap.add_argument("--cart-size", type=int, default=None)
     ap.add_argument("--out-dir", default=None,
-                    help="save summary.json and trajectory.npz here (the trajectory "
-                         "plot and GPS overlay need viz/plots.py, not ported yet: "
-                         "ROADMAP.md Queue 1, item 8)")
+                    help="save summary.json, trajectory.npz and trajectory.jpg (against "
+                         "GT, with the GPS track where gps/gps.csv exists) here")
     ap.add_argument("--loop-closure", action="store_true",
                     help="loop closure + pose graph over the map at the end")
     ap.add_argument("--ba", action="store_true",
@@ -35,9 +34,10 @@ def main(argv=None):
                     help="frames between online loop-closure + pose-graph passes "
                          "fed back into the running state (0: none)")
     ap.add_argument("--viz-dir", default=None,
-                    help="per-frame figures (not ported yet: raises)")
+                    help="save per-frame tracking/trajectory composites here, and at "
+                         "the end map.png and (with ffmpeg) run.mp4")
     ap.add_argument("--viz-every", type=int, default=3,
-                    help="frames between figures, with --viz-dir")
+                    help="frames between composites, with --viz-dir")
     ap.add_argument("--metrics", default=None,
                     help="write a per-frame JSONL metrics stream here (frame, "
                          "n_tracked, n_inliers, fit_ok, keyframe/retrack flags)")
@@ -88,8 +88,28 @@ def main(argv=None):
     if args.out_dir:
         import numpy as np
 
+        from radarslampy_tpu_torch.io.oxford import load_gps_trajectory
+        from radarslampy_tpu_torch.viz.plots import align_xy, plot_trajectories
+
         os.makedirs(args.out_dir, exist_ok=True)
         ts, est = res.trajectory.as_arrays()
+        gt = res.gt_trajectory.pose_at_times(ts) if res.gt_trajectory is not None else None
+        # the GPS track, interpolated at the radar timestamps and rigidly
+        # aligned onto the estimate over the frames it covers
+        gps_xy = None
+        try:
+            gps_ts, gps = load_gps_trajectory(sys_.paths["gps"])
+            sel = (gps_ts >= ts[0]) & (gps_ts <= ts[-1])
+            if sel.sum() >= 2:
+                g_ts, g_xy = gps_ts[sel], gps[sel]
+                gps_at_radar = np.stack([np.interp(ts, g_ts, g_xy[:, 0]),
+                                         np.interp(ts, g_ts, g_xy[:, 1])], axis=1)
+                gps_xy = align_xy(gps_at_radar, est[:, :2])
+        except (OSError, ValueError, IndexError):
+            pass
+        plot_trajectories(gt, est, title=args.sequence, rmse=res.rmse_vs_gt,
+                          save_path=os.path.join(args.out_dir, "trajectory.jpg"),
+                          gps_xy=gps_xy)
         with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
         np.savez(os.path.join(args.out_dir, "trajectory.npz"), timestamps=ts, poses=est)

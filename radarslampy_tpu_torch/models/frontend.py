@@ -169,8 +169,7 @@ def _features_to_world(px, mask, pose, velocity, cfg: SlamConfig):
     """Pixel features -> (undistorted local metric, world positions), zero
     where masked."""
     und = undistort(velocity, _px_to_metric(px, cfg), cfg.scan_period_s)
-    T = geo.pose_to_transform(pose)
-    world = und @ T[:2, :2].T + T[:2, 2]
+    world = geo.transform_points(geo.pose_to_transform(pose), und)
     keep = mask[:, None]
     return (torch.where(keep, und, torch.zeros_like(und)),
             torch.where(keep, world, torch.zeros_like(world)))

@@ -1,8 +1,10 @@
 """RadarSlamSystem — the user-facing driver of the port.
 
 Counterpart of `radarslampy_tpu/models/system.py`.  Host work only: PNG
-decode in worker threads, `frontend.slam_step` on the device for each frame,
-and the trajectory, per-frame metrics and checkpoints around it.
+decode ahead of the step (the C++ decode pool of `io/native_loader.py` where
+it builds, else PIL in worker threads), `frontend.slam_step` on the device for
+each frame, and the trajectory, per-frame metrics, checkpoints and figures
+around it.
 
 Usage:
     sys = RadarSlamSystem("tiny", data_root="data")      # device="cuda"
@@ -11,14 +13,15 @@ Usage:
 
 The back-end runs as in the JAX driver: `optimize_map` (loop closure, pose
 graph, optionally BA) after the run with `optimize` or `ba`, and
-`incremental_backend` every `backend_every` frames.  The figures (`viz_dir`)
-are not ported yet: `run` raises `NotImplementedError` on them.
+`incremental_backend` every `backend_every` frames.  `viz_dir` writes the JAX
+driver's figures (`viz/plots.py`, which needs matplotlib).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 import time
 from typing import Callable, List, Optional
@@ -29,6 +32,7 @@ import torch
 from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import DEFAULT_CONFIG, SlamConfig
 from radarslampy_tpu_torch.io import oxford
+from radarslampy_tpu_torch.io.native_loader import NativeLoader, native_available
 from radarslampy_tpu_torch.models import frontend
 from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
 from radarslampy_tpu_torch.models.loopclosure import (close_loops, incremental_backend,
@@ -256,14 +260,22 @@ class RadarSlamSystem:
         corrected poses back into the running state; 0 = none.  The final
         checkpoint holds that re-anchored state.
 
-        `viz_dir` raises `NotImplementedError`: `viz/plots.py` is not ported
-        yet (ROADMAP.md Queue 1, item 8).  `viz_every` only applies with
-        `viz_dir`.
+        `viz_dir`: every `viz_every` frames a composite of the tracked
+        features over the current Cartesian scan and the trajectory so far
+        (with the GT at the same frames) goes to `frame_<index>.jpg`; at the
+        end `map.png` (the map's points and the trajectory) and, where ffmpeg
+        exists, `run.mp4`.  Each figure fetches the state from the device.
+
+        The PNGs are decoded by `NativeLoader` when `native_available()`,
+        else by `_Prefetcher` (PIL).  A native decode that fails raises; it
+        does not fall back to PIL.
         """
+        plots = None
         if viz_dir:
-            raise NotImplementedError(
-                "viz_dir needs viz/plots.py, which is not ported yet "
-                "(ROADMAP.md Queue 1, item 8)")
+            # before the first step: a machine without matplotlib fails here
+            from radarslampy_tpu_torch.viz import plots
+
+            os.makedirs(viz_dir, exist_ok=True)
         cfg, dev = self.cfg, self.device
         est = Trajectory()
         state = None
@@ -291,7 +303,9 @@ class RadarSlamSystem:
                 raise ValueError(f"frames [{start}, {end}] outside the sequence's "
                                  f"{len(self.img_paths)} frames")
             # raw u8 power: dequantised on the device by the step
-            frames = _Prefetcher(self.img_paths[start:end + 1], cfg, raw_u8=True)
+            window = self.img_paths[start:end + 1]
+            frames = (NativeLoader(window, cfg, raw_u8=True) if native_available()
+                      else _Prefetcher(window, cfg, raw_u8=True))
         it = iter(frames)
         if not resumed:
             first = next(it)
@@ -308,6 +322,8 @@ class RadarSlamSystem:
         online_events = {}
         stamps: List[int] = []
         rows: List[torch.Tensor] = []
+        viz_poses: List[np.ndarray] = []
+        viz_stamps: List[int] = []
         for frame in it:
             state, out = frontend.slam_step(state, frame.power, self.maps, cfg)
             stamps.append(frame.frame_timestamp)
@@ -325,6 +341,17 @@ class RadarSlamSystem:
                 n_online_loops += nl
                 if nl:
                     online_events[start + n] = nl
+            if plots is not None and viz_every and n % viz_every == 0:
+                viz_poses.append(out.pose.cpu().numpy())
+                # the GT at the frames whose poses are drawn
+                viz_stamps.append(frame.frame_timestamp)
+                gt_xy = (None if self.gt_traj is None
+                         else np.asarray(self.gt_traj.pose_at_times(viz_stamps))[:, :2])
+                plots.plot_frame_composite(
+                    state.prev_cart.cpu().numpy(), state.feat_px.cpu().numpy(),
+                    state.feat_mask.cpu().numpy(), gt_xy, np.stack(viz_poses)[:, :2],
+                    os.path.join(viz_dir, f"frame_{start + n:06d}.jpg"),
+                    title=f"frame {start + n}")
             if checkpoint_dir and checkpoint_every and n % checkpoint_every == 0:
                 partial = Trajectory(est.timestamps, est.poses)
                 for ts, pose in zip(stamps, _fetch(rows)[:, :3]):
@@ -353,6 +380,13 @@ class RadarSlamSystem:
         if checkpoint_dir:
             save_state(checkpoint_dir, state, est,
                        meta={"next_frame_index": last_abs + 1})
+
+        if plots is not None:
+            plots.frames_to_mp4(viz_dir, os.path.join(viz_dir, "run.mp4"))
+            plots.plot_map(state.map.feat_world.cpu().numpy().reshape(-1, 2),
+                           state.map.feat_mask.cpu().numpy().reshape(-1),
+                           est_poses=np.asarray(est.as_arrays()[1]),
+                           save_path=os.path.join(viz_dir, "map.png"))
 
         return RunResult(
             trajectory=est,

@@ -34,6 +34,27 @@ def top_k_stable(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def gaussian_blur(img, sigma: float):
+    """Separable Gaussian blur of a [H, W] image, zero padding (the JAX
+    package's `gaussian_blur`); sigma < 0.3 returns the image."""
+    if sigma < 0.3:
+        return img
+    k = torch.as_tensor(doh_cuda.gaussian_taps(sigma), dtype=img.dtype, device=img.device)
+    r = k.shape[0] // 2
+    x = F.conv2d(img[None, None], k.view(1, 1, 1, -1), padding=(0, r))
+    return F.conv2d(x, k.view(1, 1, -1, 1), padding=(r, 0))[0, 0]
+
+
+def doh_response(img, cfg: SlamConfig, filters: DohFilters = None):
+    """[n_sigma, H, W] scale-normalised DoH responses at `cfg.doh_sigmas`
+    (`doh_cuda.doh_response`: the CUDA kernel for a CUDA tensor, its plain
+    twin for a CPU tensor).  `filters` default to `cfg`'s, built on the
+    image's device."""
+    if filters is None:
+        filters = doh_cuda.build_doh_filters(cfg.doh_sigmas, img.device)
+    return doh_cuda.doh_response(img, filters)
+
+
 def detect_blobs_from_response(resp, cfg: SlamConfig) -> Candidates:
     """3x3x3 local maxima above threshold, top `n_candidates` of them."""
     ns, H, W = resp.shape

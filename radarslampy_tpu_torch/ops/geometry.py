@@ -91,6 +91,11 @@ def se2_log(T):
     return torch.stack([vx, vy, w], dim=-1)
 
 
+def transform_points(T, pts):
+    """Apply a [3,3] SE(2) transform to [..., 2] points."""
+    return pts @ T[:2, :2].T + T[:2, 2]
+
+
 def procrustes_masked(src, tgt, weights):
     """Weighted closed-form 2-D rigid registration.
 
@@ -115,3 +120,10 @@ def procrustes_masked(src, tgt, weights):
     R = torch.where(ok, R, torch.eye(2, dtype=src.dtype, device=src.device))
     h = torch.where(ok, h, torch.zeros_like(h))
     return R, h, ok
+
+
+def rigid_transform_pose(src, tgt, weights):
+    """As `procrustes_masked`, but returns the [dx, dy, dtheta] pose vector
+    and `ok`."""
+    R, h, ok = procrustes_masked(src, tgt, weights)
+    return torch.stack([h[0], h[1], torch.atan2(R[1, 0], R[0, 0])]), ok

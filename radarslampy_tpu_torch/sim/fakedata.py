@@ -1,12 +1,14 @@
-"""Synthetic radar scans for the port's tests and card smoke run.
+"""Synthetic point sets and radar scans for the port's tests and card runs.
 
-The port's copy of the scan renderer of `radarslampy_tpu/sim/fakedata.py`
-(`make_world`, `make_world_corridor`, `render_polar_scan`, `render_sequence`),
-which cannot be imported without JAX: a world of point landmarks, each
-rendered as a Gaussian blob in (azimuth, range) with optional
-constant-velocity motion distortion and Rayleigh noise.  Host-side numpy,
-never on the device path; `tests/test_torch_config.py` holds the two copies
-to identical output.
+The port's copy of `radarslampy_tpu/sim/fakedata.py`, which cannot be
+imported without JAX: the point-set generators (`random_points`,
+`random_pose`, `apply_pose`, `make_correspondences`, `add_noise`,
+`make_outliers`, `distort`) and the scan renderer (`make_world`,
+`make_world_corridor`, `render_polar_scan`, `render_sequence`): a world of
+point landmarks, each rendered as a Gaussian blob in (azimuth, range) with
+optional constant-velocity motion distortion and Rayleigh noise.  Host-side
+numpy with a `numpy.random.Generator`, never on the device path; the tests
+hold the two copies to identical output.
 """
 
 from __future__ import annotations
@@ -14,6 +16,72 @@ from __future__ import annotations
 import numpy as np
 
 from radarslampy_tpu_torch.config import SlamConfig
+
+
+def random_points(rng, n, spread=50.0):
+    """[N,2] points uniform in a centred square (metres or px as caller wishes)."""
+    return rng.uniform(-spread, spread, size=(n, 2))
+
+
+def random_pose(rng, max_trans=3.0, max_rot=0.3):
+    th = rng.uniform(-max_rot, max_rot)
+    return np.array([rng.uniform(-max_trans, max_trans),
+                     rng.uniform(-max_trans, max_trans), th])
+
+
+def apply_pose(pose, pts):
+    c, s = np.cos(pose[2]), np.sin(pose[2])
+    R = np.array([[c, -s], [s, c]])
+    return pts @ R.T + pose[:2]
+
+
+def make_correspondences(rng, n=100, spread=50.0, max_trans=3.0, max_rot=0.3):
+    """Ground-truth correspondence pair: new = T(old).
+
+    Returns (old_pts, new_pts, pose) with new_i = R old_i + t.
+    """
+    old = random_points(rng, n, spread)
+    pose = random_pose(rng, max_trans, max_rot)
+    new = apply_pose(pose, old)
+    return old, new, pose
+
+
+def add_noise(rng, pts, sigma=0.1):
+    return pts + rng.normal(0.0, sigma, size=pts.shape)
+
+
+def make_outliers(rng, pts, n_outliers, magnitude=10.0):
+    """Displace `n_outliers` random points by a large offset; returns (pts, idx)."""
+    out = pts.copy()
+    idx = rng.choice(len(pts), size=n_outliers, replace=False)
+    offs = rng.uniform(magnitude * 0.5, magnitude, size=(n_outliers, 2))
+    offs *= rng.choice([-1.0, 1.0], size=(n_outliers, 2))
+    out[idx] += offs
+    return out, idx
+
+
+def distort(points, velocity, period=0.25):
+    """Ground-truth motion-distortion *forward* model.
+
+    Given ideal instantaneous points (sensor frame at scan time t=0) and a body
+    velocity twist, produce what the spinning radar actually records: each point
+    is observed at its scan-time offset dt, i.e. moved by the *inverse* of the
+    correction `motion.undistort` applies.  Round-tripping through
+    `undistort(velocity, distort(p, velocity))` recovers p (to first order in the
+    dt re-estimation, exact when dt is computed from the distorted points —
+    tests verify the achievable tolerance).
+    """
+    angles = np.arctan2(-points[:, 1], -points[:, 0])
+    dt = period * angles / (2 * np.pi)
+    disp = velocity[None, :] * dt[:, None]
+    th = disp[:, 2]
+    c, s = np.cos(th), np.sin(th)
+    # inverse of p' = R(th) p + v dt  ->  p = R(-th) (p' - v dt)
+    px = points[:, 0] - disp[:, 0]
+    py = points[:, 1] - disp[:, 1]
+    x = c * px + s * py
+    y = -s * px + c * py
+    return np.stack([x, y], axis=1)
 
 
 def make_world(rng, n_landmarks=400, extent_m=400.0):

@@ -4,8 +4,8 @@
   <root>/<sequence>/radar.timestamps          "<timestamp> 1" per frame
   <root>/<sequence>/gt/radar_odometry.csv     per-frame (dx, dy, dyaw) that
                                               chain to the given poses
-  <root>/<sequence>/radar/<timestamp>.png     400 rows x (11 + clipped range
-                                              bins) u8, with `png=True`
+  <root>/<sequence>/radar/<timestamp>.png     400 rows x (11 + range bins) u8,
+                                              the Oxford width, with `frames_u8`
 
 Timestamps are microseconds, one scan period apart.  Writing PNGs needs PIL,
 imported only then.
@@ -40,14 +40,17 @@ def _relative_motion(poses):
 
 
 def _png_rows(power_u8, stamp: int, cfg: SlamConfig) -> np.ndarray:
+    """One Oxford PNG: 11 metadata columns and all `num_range_bins` power
+    columns (the native decoder refuses a narrower image); the bins past the
+    clip stay zero, so every decoder reads the scan's clipped power."""
     A, bins = cfg.num_azimuths, cfg.clipped_range_bins
-    raw = np.zeros((A, 11 + bins), np.uint8)
+    raw = np.zeros((A, 11 + cfg.num_range_bins), np.uint8)
     az_us = stamp + np.arange(A, dtype=np.int64) * int(cfg.scan_period_s * 1e6) // A
     raw[:, :8] = az_us.astype("<i8").view(np.uint8).reshape(A, 8)
     enc = (np.arange(A) * cfg.encoder_size // A).astype("<u2")
     raw[:, 8:10] = enc.view(np.uint8).reshape(A, 2)
     raw[:, 10] = 255
-    raw[:, 11:] = power_u8[:, :bins]
+    raw[:, 11:11 + bins] = power_u8[:, :bins]
     return raw
 
 

@@ -225,3 +225,41 @@ def test_device_render_eval_on_the_card_matches_the_cpu(cuda):
     assert float(d[:, :2].max()) <= 0.1728 and float(d[:, 2].max()) <= 1.0 / 512
     assert (a.n_keyframes, a.n_retracks) == (b.n_keyframes, b.n_retracks)
     assert torch.equal(a.final_state.map.frame_ids.cpu(), b.final_state.map.frame_ids)
+
+
+def test_png_decode_feeds_the_card_step(cuda, tmp_path):
+    """Oxford PNGs decoded the way the driver decodes them (the native pool
+    where it builds, else PIL) give the written bytes, and the step on the
+    card over them equals the step over the written frames bit for bit."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.io import native_loader, oxford
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.models import system as S
+    from radarslampy_tpu_torch.sim import fakedata as fd
+    from radarslampy_tpu_torch.sim import oxford_files
+
+    cfg = SlamConfig(cart_size=256, cart_downsample=16, n_candidates=256, max_keyframes=16)
+    poses = np.array([[0.0, 0.0, 0.0], [1.8, 0.0, 0.04], [3.6, 0.07, 0.08]])
+    frames = np.stack([np.clip(np.round(s * 255.0), 0, 255).astype(np.uint8)
+                       for _, s in fd.render_sequence(np.random.default_rng(2), poses, cfg,
+                                                      n_landmarks=1200, noise=0.01)])
+    oxford_files.write_sequence(str(tmp_path), "s", poses, cfg, frames)
+    sp = oxford.sequence_paths(str(tmp_path), "s")
+    paths = oxford.radar_image_paths(sp["radar"], sp["timestamps"])
+    loader = (native_loader.NativeLoader if native_loader.native_available()
+              else S._Prefetcher)
+    decoded = [f.power for f in loader(paths, cfg, raw_u8=True)]
+    frames[:, :, cfg.clipped_range_bins:] = 0
+    assert np.array_equal(np.stack(decoded), frames)
+    maps = F.build_frame_maps(cfg, cuda)
+    outs = []
+    for scans in (decoded, list(frames)):
+        state = F.init_state(scans[0], np.zeros(3), maps, cfg)
+        for scan in scans[1:]:
+            state, out = F.slam_step(state, scan, maps, cfg)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for field in F.StepOutput._fields:
+        assert torch.equal(getattr(outs[0], field), getattr(outs[1], field)), field

@@ -252,13 +252,6 @@ def test_prefetcher_propagates_decode_errors(tmp_path):
         next(iter(TS._Prefetcher([str(corrupt)], cfg, raw_u8=True)))
 
 
-@pytest.mark.parametrize("kw", [dict(viz_dir="viz")], ids=lambda kw: next(iter(kw)))
-def test_unported_options_raise(seq, kw):
-    sys_ = RadarSlamSystem(SEQ, seq["root"], SlamConfig(**KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sys_.run(**kw)
-
-
 def test_driver_defaults_to_cuda(seq):
     if torch.cuda.is_available():
         assert RadarSlamSystem(SEQ, seq["root"], SlamConfig(**KW)).device.type == "cuda"
