@@ -89,7 +89,13 @@ Phases, one line each (elapsed seconds in brackets):
      their sum, the fused step, the step with dispatch), a `StageTimer` over
      5 steps and a `device_trace` of one step holding CUDA kernel events;
      (g) `run(viz_dir, viz_every=3)`'s figures where matplotlib imports, else
-     one line saying so.
+     one line saying so;
+ 11. the bench (`radarslampy_tpu_torch.bench.run_bench`) in-process at
+     `SlamConfig()` over 20 measured frames, one trial of each path and a
+     traced window of 5 steps: its own checks (every path's final state and
+     outputs equal bit for bit, equal counts, ATE under 5 m, a trace that
+     lost no device events) raise on failure; its JSON object on a line of
+     its own; each path's DoH launches equal to its retracks.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -111,9 +117,6 @@ import time
 
 T0 = time.time()
 
-# H100 SXM data sheet: HBM3 bandwidth and fp32 rate of the CUDA cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
 N_FRAMES = 12
 CHECKPOINT_AT = 6   # the driver's mid-run checkpoint, resumed in phase 5
 FMT_TURN = 0.15     # rad per frame of phase 6's pure turn
@@ -132,13 +135,6 @@ Frame = collections.namedtuple("Frame", "power frame_timestamp")
 
 def log(msg):
     print(f"[{time.time() - T0:7.1f}s] {msg}", flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps=30, warmup=3):
@@ -190,18 +186,14 @@ def graph_ms(fn, n=100, replays=5, warmup=3):
     return statistics.median(times)
 
 
-def _device_us(ev):
-    """A profiler event's device time in us (`cuda_time_total` before torch 2.4)."""
-    us = getattr(ev, "device_time_total", None)
-    return ev.cuda_time_total if us is None else us
-
-
 def profiler_ms(fn, kernel_name, n=20):
     """Mean device time of the kernel named `kernel_name` per fn() call, from
     torch.profiler's key_averages(); None when the trace shows no device time
     for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch.utils.profiling import device_us
 
     fn()
     torch.cuda.synchronize()
@@ -211,22 +203,10 @@ def profiler_ms(fn, kernel_name, n=20):
         torch.cuda.synchronize()
     for ev in prof.key_averages():
         if kernel_name in ev.key:
-            us = _device_us(ev)
+            us = device_us(ev)
             if us > 0 and ev.count:
                 return us / 1e3 / n
     return None
-
-
-def doh_bound_ms(S, radii):
-    """Least time for the DoH function: each input byte read once, each output
-    byte written once; separable blur (2 passes, 2 flop per tap) plus the
-    14-flop Hessian stencil per pixel and sigma."""
-    n = len(radii)
-    bytes_moved = 4 * S * S + 4 * n * S * S + 4 * sum(2 * r + 1 for r in radii)
-    flops = S * S * sum(2 * 2 * (2 * r + 1) + 14 for r in radii)
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def render_frames(cfg, n_frames, seed):
@@ -290,55 +270,6 @@ def render_turn(cfg, n_frames, seed):
         for p in poses])
 
 
-def leaves(state):
-    return list(state[:-2]) + list(state.map) + [state.frame_idx]
-
-
-def states_equal(torch, a, b):
-    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
-
-
-def step_profile(prof):
-    """From a trace holding one slam_step: {range: (host ms, device ms)} for
-    the step and each of its `slam_step.<stage>` ranges, the step's host
-    window (ms), and the device's busy time inside that window (ms).  A
-    range's device time is the sum of the kernels (and copies) launched
-    inside it; busy time is the union of all device activity in the window."""
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    ranges = [e for e in events if e.device_type == DeviceType.CPU
-              and (e.name == "slam_step" or e.name.startswith("slam_step."))]
-    stages = {e.name: (e.cpu_time_total / 1e3, _device_us(e) / 1e3) for e in ranges}
-    step = [e for e in ranges if e.name == "slam_step"]
-    if len(step) != 1 or len(stages) != len(ranges):
-        raise AssertionError(f"expected one slam_step with one range per stage, got "
-                             f"{[e.name for e in ranges]}")
-    t0, t1 = step[0].time_range.start, step[0].time_range.end
-    busy = device_busy_us(events, t0, t1, skip=lambda e: e.name.startswith("slam_step"))
-    return stages, (t1 - t0) / 1e3, busy / 1e3
-
-
-def device_busy_us(events, t0=float("-inf"), t1=float("inf"), skip=lambda e: False):
-    """The union of the device activity among profiler `events` inside
-    [t0, t1], in us."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in events
-                   if e.device_type != DeviceType.CPU and not skip(e)
-                   and not getattr(e, "is_user_annotation", False))
-    busy, cur = 0.0, None
-    for a, b in spans:
-        if b <= a:
-            continue
-        if cur is None or a > cur[1]:
-            busy += 0 if cur is None else cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    return busy + (0 if cur is None else cur[1] - cur[0])
-
-
 def untraced_ms(torch, step, dev):
     """Median wall time (ms) of five synchronised calls of `step()` with no
     profiler on."""
@@ -376,6 +307,7 @@ def drive(torch, cfg, gt, frames, dev, tmp):
     from radarslampy_tpu_torch.ops.cuda import doh_cuda
     from radarslampy_tpu_torch.sim import oxford_files
     from radarslampy_tpu_torch.utils.checkpoint import load_state
+    from radarslampy_tpu_torch.utils.profiling import step_profile
 
     stamps = oxford_files.write_sequence(tmp, "synth", gt, cfg)
 
@@ -426,6 +358,7 @@ def fmt_turn(torch, cfg, frames, dev):
 
     from radarslampy_tpu_torch.models import frontend as F
     from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.utils.profiling import step_profile
 
     maps = F.build_frame_maps(cfg, dev)
     state = F.init_state(frames[0], np.zeros(3), maps, cfg)
@@ -501,12 +434,14 @@ def run_arrays(res):
     """Every array and number of a RunResult, in a fixed order."""
     import numpy as np
 
+    from radarslampy_tpu_torch.utils.checkpoint import state_leaves
+
     out = [np.asarray(a) for a in res.trajectory.as_arrays()]
     out += [np.asarray(getattr(res, f)) for f in ("kf_poses_optimized", "kf_poses_ba",
                                                   "landmarks_ba")]
     out += [np.asarray([res.posegraph_cost, res.ba_cost, res.n_loop_closures,
                         res.n_online_loops, res.n_keyframes, res.frames])]
-    return out + [x.cpu().numpy() for x in leaves(res.final_state)]
+    return out + [x.cpu().numpy() for x in state_leaves(res.final_state)]
 
 
 def backend_driver(torch, cfg, dev, tmp):
@@ -792,11 +727,13 @@ def evals_equal(torch, a, b):
     every number but fps, and every leaf of the final state."""
     import numpy as np
 
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
     return (np.array_equal(a.est_frames, b.est_frames)
             and all(getattr(a, f) == getattr(b, f) for f in EVAL_NUMBERS)
             and (a.gt_keyframes is None) == (b.gt_keyframes is None)
             and (a.gt_keyframes is None or np.array_equal(a.gt_keyframes, b.gt_keyframes))
-            and states_equal(torch, a.final_state, b.final_state))
+            and states_equal(a.final_state, b.final_state))
 
 
 def render_times(torch, cfg, poses, n=30):
@@ -810,6 +747,7 @@ def render_times(torch, cfg, poses, n=30):
     from radarslampy_tpu_torch import evaluation as ev
     from radarslampy_tpu_torch.sim import fakedata as fd
     from radarslampy_tpu_torch.sim.render_device import render_polar_scan_device
+    from radarslampy_tpu_torch.utils.profiling import device_busy_us
 
     wp, wr = fd.make_world_corridor(np.random.default_rng(EVAL_SEED), poses,
                                     cfg.max_range_clip_m)
@@ -1453,6 +1391,7 @@ def png_checks(torch, cfg, card, gt, frames, straight):
     profile_stages."""
     import numpy as np
 
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
     from radarslampy_tpu_torch.io import oxford
     from radarslampy_tpu_torch.sim import oxford_files
 
@@ -1496,7 +1435,7 @@ def png_checks(torch, cfg, card, gt, frames, straight):
         ts, est = r.trajectory.as_arrays()
         ts5, est5 = straight.trajectory.as_arrays()
         if not (np.array_equal(ts, ts5) and np.array_equal(est, est5)
-                and states_equal(torch, r.final_state, straight.final_state)):
+                and states_equal(r.final_state, straight.final_state)):
             raise AssertionError("the driver over PNGs != phase 5's frame_source run")
         expected = ["NativeLoader"] if facts["native"] else ["_Prefetcher"]
         if drv["decoder"] != expected or drv["launches"] < 1:
@@ -1556,6 +1495,45 @@ def png_checks(torch, cfg, card, gt, frames, straight):
     return drv["launches"], cli["launches"], sp10["launches"]
 
 
+# Phase 11: the bench, cut to a smoke run (python -m radarslampy_tpu_torch.bench
+# runs it at 200 frames and 3 trials)
+BENCH_SMOKE = dict(frames=20, trials=1, trace_frames=5)
+
+
+def bench_checks(torch, cfg):
+    """Phase 11: the bench in-process on the card; prints its JSON object and
+    returns its DoH launches."""
+    import math
+
+    from radarslampy_tpu_torch import bench
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+
+    t = time.time()
+    doh_cuda.launches = 0
+    res = bench.run_bench(cfg, "cuda", seed=0, **BENCH_SMOKE)
+    launches = doh_cuda.launches
+    print(json.dumps(res), flush=True)
+    log(f"bench {BENCH_SMOKE}: frames/s per_call_sync {res['per_call_sync_fps']:.3f}, "
+        f"per_dispatch {res['per_dispatch_fps']:.3f}, chunked {res['chunked_fps']:.3f}; "
+        f"per-call ms p50 {res['per_call_ms_p50']:.2f}, p95 {res['per_call_ms_p95']:.2f}; "
+        f"idle share {res['device_idle_share']:.4f}; ATE {res['ate_m']:.4f} m, fit_ok "
+        f"{res['fit_ok_share']:.3f}, keyframes {res['keyframes']}, retracks "
+        f"{res['retracks']}; doh launches {res['doh_launches']} ({launches} in all), "
+        f"{res['doh_device_ms']:.5f} ms a launch, {res['doh_bound_share']:.1%} of bound; "
+        f"phase 11 in {time.time() - t:.1f} s")
+    # one DoH launch per retrack (StepOutput.did_retrack) on every path
+    if not (launches >= 1
+            and all(res["doh_launches"][p] == res["retracks"] for p in bench.PATHS)
+            and res["device_kind"] == torch.cuda.get_device_name(0)
+            and 0.0 <= res["device_idle_share"] <= 1.0
+            and all(math.isfinite(res[f"{p}_fps"]) and res[f"{p}_fps"] > 0
+                    for p in bench.PATHS)):
+        raise AssertionError(f"bench: launches {launches}, {res['doh_launches']} against "
+                             f"{res['retracks']} retracks, device {res['device_kind']}, "
+                             f"idle {res['device_idle_share']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1571,10 +1549,12 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
     from radarslampy_tpu_torch.config import SlamConfig
     from radarslampy_tpu_torch.models import frontend as F
     from radarslampy_tpu_torch.ops.cuda import doh_cuda
     from radarslampy_tpu_torch.ops.grid import warp_polar_to_cartesian
+    from radarslampy_tpu_torch.utils.profiling import card_line
 
     # 1. the card
     card = card_line()
@@ -1617,7 +1597,7 @@ def main() -> int:
         S = img.shape[0]
         err, tol, device_ms, wrapper_ms, plain_ms = check_doh_kernel(
             torch, doh_cuda, img, maps.doh)
-        bound, bound_by = doh_bound_ms(S, maps.doh.radii)
+        bound, bound_by = doh_cuda.doh_bound_ms(S, maps.doh.radii)
         log(f"doh S={S} sigmas={cfg.doh_sigmas}: max_abs_err {err:.3e} "
             f"(tol per sigma {', '.join(f'{t:.3e}' for t in tol)}) "
             f"kernel {device_ms:.5f} ms on the device (graph replay), {wrapper_ms:.5f} ms "
@@ -1725,17 +1705,17 @@ def main() -> int:
     drift_d = float(np.linalg.norm(drv["est"][-1, :2] - gt[-1, :2]))
     if not np.array_equal(drv["est"], est.astype(np.float64)):
         raise AssertionError("driver trajectory != the per-frame loop of phase 4")
-    if not states_equal(torch, straight.final_state, state):
+    if not states_equal(straight.final_state, state):
         raise AssertionError("driver final state != the per-frame loop's state")
     if not (np.array_equal(drv["checkpointed"].trajectory.as_arrays()[1], drv["est"])
-            and states_equal(torch, drv["checkpointed"].final_state, state)):
+            and states_equal(drv["checkpointed"].final_state, state)):
         raise AssertionError("checkpointing changed the run")
     res_r = drv["resumed"]
     if not (res_r.frames == N_FRAMES - CHECKPOINT_AT - 1
             and np.array_equal(res_r.trajectory.as_arrays()[0],
                                straight.trajectory.as_arrays()[0])
             and np.array_equal(res_r.trajectory.as_arrays()[1], drv["est"])
-            and states_equal(torch, res_r.final_state, straight.final_state)):
+            and states_equal(res_r.final_state, straight.final_state)):
         raise AssertionError(f"resume from frame {CHECKPOINT_AT} != the straight run")
     recs = drv["recs"]
     if not (len(recs) == N_FRAMES - 1
@@ -1840,10 +1820,14 @@ def main() -> int:
     png_launches, cli_launches, profile_launches = png_checks(
         torch, cfg, card, gt, frames, straight)
 
+    # 11. the bench, in-process and cut to a smoke run
+    bench_launches = bench_checks(torch, cfg)
+
     by_path = {"step": launches, "driver": driver_launches, "fmt_step": fmt_launches,
                "backend_driver": bk["launches"], "eval": eval_launches,
                "batch_odometry": batch_launches, "png_driver": png_launches,
-               "cli": cli_launches, "profile_stages": profile_launches}
+               "cli": cli_launches, "profile_stages": profile_launches,
+               "bench": bench_launches}
     doh_row["launches"] = sum(by_path.values())
     doh_row["launches_by_path"] = by_path
     print(card_line(), flush=True)

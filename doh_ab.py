@@ -77,6 +77,7 @@ def main() -> int:
     import chip_smoke
     from radarslampy_tpu_torch.config import SlamConfig
     from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.utils import profiling
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="path of the two-pass doh.cu to time beside the current")
@@ -172,7 +173,7 @@ def main() -> int:
         f1 = doh_cuda.build_doh_filters((sigma,), "cuda")
         per_sigma[str(sigma)] = chip_smoke.graph_ms(
             lambda f1=f1: doh_cuda.doh_response_cuda(img, f1))
-    bound, bound_by = chip_smoke.doh_bound_ms(S, filters.radii)
+    bound, bound_by = doh_cuda.doh_bound_ms(S, filters.radii)
     res = {"S": S, "sigmas": list(sigmas), "bound_ms": bound, "bound_by": bound_by}
     if args.old:
         old, cur = statistics.median(ab["old"]), statistics.median(ab["new"])
@@ -180,7 +181,7 @@ def main() -> int:
                    new_median_ms=cur, speedup=old / cur, new_bound_share=bound / cur)
     res.update(new_around_cuts_ms=new_ms, cut_ms=cut_ms, zero_output_ms=zero_ms,
                new_per_sigma_ms=per_sigma)
-    print(chip_smoke.card_line(), flush=True)
+    print(profiling.card_line(), flush=True)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -252,6 +252,24 @@ def redundant_work(S: int, radii: tuple) -> tuple:
     return tuple(tiles * tile_fmas(r) / (2 * (2 * r + 1) * S * S) for r in radii)
 
 
+# H100 SXM data sheet: HBM3 bandwidth and fp32 rate of the CUDA cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+
+
+def doh_bound_ms(S: int, radii: tuple):
+    """Least time for the DoH function on an H100 -> (ms, "bytes" or
+    "operations"): each input byte read once, each output byte written once;
+    separable blur (2 passes, 2 flop per tap) plus the 14-flop Hessian
+    stencil per pixel and sigma."""
+    n = len(radii)
+    bytes_moved = 4 * S * S + 4 * n * S * S + 4 * sum(2 * r + 1 for r in radii)
+    flops = S * S * sum(2 * 2 * (2 * r + 1) + 14 for r in radii)
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def build_library(source: Path = SOURCE) -> Path:
     """Compile `source` (csrc/doh.cu by default) into _build/, once per source
     hash; return the .so."""

@@ -10,7 +10,8 @@ so a checkpoint written by either package resumes in the other:
 
 `load_state` rebuilds the port's containers from that field order and `cfg`
 (there is no JAX treedef to read): it checks each leaf's shape and casts to
-the port's dtypes.
+the port's dtypes.  `state_leaves` walks a state's tensors in that order;
+`states_equal` compares two states leaf by leaf, bit for bit.
 """
 
 from __future__ import annotations
@@ -52,12 +53,19 @@ def _layout(cfg: SlamConfig):
     return out
 
 
-def _leaves(state: SlamState):
+def state_leaves(state: SlamState):
+    """Every tensor of `state` in the layout's order, the map's in place."""
     for name in SlamState._fields:
         if name == "map":
             yield from state.map
         else:
             yield getattr(state, name)
+
+
+def states_equal(a: SlamState, b: SlamState) -> bool:
+    """Two states equal bit for bit, leaf by leaf (dtype included)."""
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(state_leaves(a), state_leaves(b), strict=True))
 
 
 def save_state(path: str, state: SlamState, trajectory=None,
@@ -66,7 +74,7 @@ def save_state(path: str, state: SlamState, trajectory=None,
     (JSON-serialisable) holds resume bookkeeping such as the absolute index
     of the next frame, read back by `load_meta`."""
     os.makedirs(path, exist_ok=True)
-    leaves = [t.detach().cpu().numpy() for t in _leaves(state)]
+    leaves = [t.detach().cpu().numpy() for t in state_leaves(state)]
     np.savez(os.path.join(path, "state.npz"),
              **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)})
     with open(os.path.join(path, "treedef.json"), "w") as f:

@@ -263,3 +263,27 @@ def test_png_decode_feeds_the_card_step(cuda, tmp_path):
     torch.cuda.synchronize()
     for field in F.StepOutput._fields:
         assert torch.equal(getattr(outs[0], field), getattr(outs[1], field)), field
+
+
+def test_bench_on_the_card(cuda):
+    """The bench at SlamConfig() over 10 measured frames, one trial of each
+    path: its checks hold (equal states and counts, ATE under 5 m) and the
+    device readings are there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch import bench
+    from radarslampy_tpu_torch.config import SlamConfig
+
+    # a trace before the bench's own, as in chip_smoke.py, where the bench's
+    # follows others in the same process; the bench's must still lose nothing
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(8, device=cuda).sum().item()
+    res = bench.run_bench(SlamConfig(), cuda, frames=10, trials=1, chunk=4, trace_frames=3)
+    assert res["device"] == "cuda" and res["device_kind"] == torch.cuda.get_device_name(0)
+    assert res["power_limit_w"] > 0 and 0.0 <= res["device_idle_share"] <= 1.0
+    assert res["doh_device_ms"] > 0 and res["doh_bound_share"] > 0
+    assert res["ate_m"] < bench.ATE_LIMIT_M and res["keyframes"] == 10
+    assert all(res[f"{p}_fps"] > 0 for p in bench.PATHS)
+    # one launch per retrack on each path and trial, plus the traced window's init
+    assert res["doh_launches"] == {p: res["retracks"] for p in bench.PATHS}
+    assert res["doh_launches_total"] >= 3 * (1 + res["retracks"]) + 1
