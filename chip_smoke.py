@@ -17,18 +17,22 @@ Phases, one line each (elapsed seconds in brackets):
      twin's, from CUDA events around single calls (median of 30); beside them
      the least time the card could take (its bound);
   4. the main path: `SlamConfig()` defaults, synthetic frames quantised to u8,
-     build_frame_maps -> init_state -> slam_step per frame, then the same
-     frames through slam_step_chunk; launch counts, drift against the
-     rendered ground truth, chunk == per-frame; then the same step at a
-     small config on the card and on the CPU, which must agree;
+     build_frame_maps -> init_state -> slam_step per frame (eager), then the
+     same frames through slam_step_chunk (the step's CUDA graph, captured
+     before the counts are reset, replayed a frame); launch counts (one DoH
+     launch a frame: the step detects on every frame and selects), drift
+     against the rendered ground truth, chunk == per-frame; then the chunk
+     at a small config on the card and on the CPU, which must agree;
   5. the driver: `RadarSlamSystem(...).run()` at `SlamConfig()` over phase
      4's frames, fed through `frame_source` from a sequence directory that
      holds radar.timestamps and a GT CSV (phase 10 runs it over PNGs); its
-     trajectory and final state equal phase 4's loop bit for bit;
+     trajectory and final state (the driver replays the step's graph) equal
+     phase 4's eager loop bit for bit;
      a run checkpointed at frame 6 and resumed equals the straight run bit
-     for bit; the metrics JSONL; ATE, drift and fps; then one driver step
-     under torch.profiler, whose `record_function` ranges inside slam_step
-     give each stage's host and device time and the step's device idle share;
+     for bit; the metrics JSONL; ATE, drift and fps; then the eager step
+     from the checkpointed state under torch.profiler, whose
+     `record_function` ranges inside slam_step give each stage's host and
+     device time and the step's device idle share;
   6. FMT: `SlamConfig(use_fmt=True)` at full width on a pure turn, its
      rotation against the rendered turn, one FMT step profiled; then the
      FMT step at a small config on the card and on the CPU, which must agree;
@@ -95,7 +99,16 @@ Phases, one line each (elapsed seconds in brackets):
      traced window of 5 steps: its own checks (every path's final state and
      outputs equal bit for bit, equal counts, ATE under 5 m, a trace that
      lost no device events) raise on failure; its JSON object on a line of
-     its own; each path's DoH launches equal to its retracks.
+     its own; each path's DoH launches equal to its frames;
+ 12. the step's CUDA graph (`frontend.StepGraph`) against the eager step,
+     bit for bit (every output, the final state) over phase 4's arc with a
+     scan of noise appended (a coast) and over phase 6's FMT turn, with the
+     count of plain frames, keyframes, retracks and coasts among them; a
+     chunk run under `torch.cuda.set_sync_debug_mode("error")`; a traced
+     window of replays whose DoH kernels equal the launches counted; the
+     graph's device ms a step (CUDA events around each replay, and the
+     trace's busy time), host ms a replay and idle share beside the eager
+     step's.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -335,14 +348,16 @@ def drive(torch, cfg, gt, frames, dev, tmp):
     resumed = RadarSlamSystem("synth", tmp, cfg, device=dev).run(
         frame_source=source(CHECKPOINT_AT + 1, n), resume_from=snap)
 
-    # the profiled step (frame CHECKPOINT_AT + 1 of a resumed run), and the
-    # same step from the same checkpointed state untraced
+    # the eager step from the checkpointed state (the driver replays the
+    # graph, which has no ranges inside), traced and untraced
     at_ck, _ = load_state(snap, cfg, dev)
     frame = frames[CHECKPOINT_AT + 1]
     unprofiled = untraced_ms(torch, lambda: F.slam_step(at_ck, frame, system.maps, cfg), dev)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev == "cuda" else [])
     with profile(activities=activities) as prof:
-        system.run(frame_source=source(CHECKPOINT_AT + 1, CHECKPOINT_AT + 2), resume_from=snap)
+        F.slam_step(at_ck, frame, system.maps, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
     return dict(straight=straight, checkpointed=checkpointed, resumed=resumed, recs=recs,
                 wall_s=wall_s, launches=launches, profile=(*step_profile(prof), unprofiled),
                 est=np.asarray(straight.trajectory.as_arrays()[1]))
@@ -1447,6 +1462,8 @@ def png_checks(torch, cfg, card, gt, frames, straight):
             f"ATE {r.rmse_vs_gt:.4f} m; == phase 5's frame_source run bit for bit "
             f"(trajectory, every state leaf); doh launches {drv['launches']}")
 
+        # each system captures its own graph, the CLI's as (d)'s: one
+        # warm-up step's launch each
         cli = png_cli(tmp)
         s = cli["summary"]
         if not (list(s) == JAX_CLI_KEYS and s["frames"] == r.frames
@@ -1521,17 +1538,152 @@ def bench_checks(torch, cfg):
         f"{res['retracks']}; doh launches {res['doh_launches']} ({launches} in all), "
         f"{res['doh_device_ms']:.5f} ms a launch, {res['doh_bound_share']:.1%} of bound; "
         f"phase 11 in {time.time() - t:.1f} s")
-    # one DoH launch per retrack (StepOutput.did_retrack) on every path
+    # one DoH launch a frame on every path: the step detects on every frame
     if not (launches >= 1
-            and all(res["doh_launches"][p] == res["retracks"] for p in bench.PATHS)
+            and all(res["doh_launches"][p] == res["measured_frames"] for p in bench.PATHS)
             and res["device_kind"] == torch.cuda.get_device_name(0)
             and 0.0 <= res["device_idle_share"] <= 1.0
             and all(math.isfinite(res[f"{p}_fps"]) and res[f"{p}_fps"] > 0
                     for p in bench.PATHS)):
         raise AssertionError(f"bench: launches {launches}, {res['doh_launches']} against "
-                             f"{res['retracks']} retracks, device {res['device_kind']}, "
+                             f"{res['measured_frames']} frames, device {res['device_kind']}, "
                              f"idle {res['device_idle_share']}")
     return launches
+
+
+GRAPH_TRACE_STEPS = 8   # replays in phase 12's traced window
+
+
+def eager_and_graph(torch, maps, cfg, frames):
+    """Phase 12 on one sequence (u8 frames on the card): the eager loop and
+    the graph from the same init_state -> (eager outputs, eager state, the
+    graph's outputs, its state, eager host ms a step, graph host ms a
+    replay, graph device ms a replay from CUDA events, DoH launches of the
+    graph's run).  The graph's first step (the
+    warm-up that captures it) is run, and the state loaded again, before its
+    run is counted."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+
+    state0 = F.init_state(frames[0], np.zeros(3), maps, cfg)
+    state, outs, eager_ms = state0, [], []
+    for f in frames[1:]:
+        t = time.perf_counter()
+        state, out = F.slam_step(state, f, maps, cfg)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(out)
+    graph = F.StepGraph(maps, cfg)
+    graph.load(state0)
+    graph.step(frames[1])
+    graph.load(state0)
+    torch.cuda.synchronize()
+    launches0 = doh_cuda.launches
+    rows, host_ms, device_ms = [], [], []
+    for f in frames[1:]:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        row = graph.step(f)
+        b.record()
+        b.synchronize()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        device_ms.append(a.elapsed_time(b))
+        rows.append(row.clone())
+    launches = doh_cuda.launches - launches0
+    return (F.StepOutput(*(torch.stack(x) for x in zip(*outs))), state,
+            F.unpack_output(torch.stack(rows)), graph.snapshot(), eager_ms, host_ms,
+            device_ms, launches)
+
+
+def graph_checks(torch, cfg, maps, frames, fcfg, turn):
+    """Phase 12: the step's CUDA graph against the eager step; returns its
+    DoH launches on the arc and the turn, and the DoH kernel's mean device
+    ms inside the traced replays."""
+    import numpy as np
+
+    from radarslampy_tpu_torch import bench
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
+    t0 = time.time()
+    noise = np.random.default_rng(12).integers(0, 40, frames.shape[1:], dtype=np.uint8)
+    arc = torch.as_tensor(np.concatenate([frames, noise[None]]), device="cuda")
+    seqs = {"arc": (cfg, maps, arc),
+            "fmt_turn": (fcfg, F.build_frame_maps(fcfg), torch.as_tensor(turn, device="cuda"))}
+    kinds = collections.Counter()
+    launches = 0
+    for name, (c, m, fr) in seqs.items():
+        eo, es, go, gs, eager_ms, host_ms, dev_ms, n = eager_and_graph(torch, m, c, fr)
+        unequal = [k for k in F.StepOutput._fields
+                   if not (getattr(eo, k).dtype == getattr(go, k).dtype
+                           and torch.equal(getattr(eo, k), getattr(go, k)))]
+        if unequal or not states_equal(es, gs):
+            raise AssertionError(f"graph != eager on the {name}: outputs {unequal}, "
+                                 f"state equal {states_equal(es, gs)}")
+        launches += n
+        if n != len(fr) - 1:
+            raise AssertionError(f"graph on the {name}: {n} DoH launches, {len(fr) - 1} frames")
+        kf, rt = eo.is_keyframe.cpu(), eo.did_retrack.cpu()
+        coast = (eo.n_inliers < c.min_inliers_accept).cpu()
+        here = collections.Counter(plain=int((~kf).sum()), keyframe=int((kf & ~rt).sum()),
+                                   retrack=int((rt & ~coast).sum()), coast=int(coast.sum()))
+        kinds.update(here)
+        log(f"graph {name}: {len(fr) - 1} frames equal to the eager step bit for bit "
+            f"(every output, every state leaf); {dict(here)}; host ms a step: eager "
+            f"{statistics.median(eager_ms):.2f} (median), graph {statistics.median(host_ms):.3f} "
+            f"a replay; graph device ms a replay (events) {statistics.median(dev_ms):.3f} "
+            f"median, {min(dev_ms):.3f}-{max(dev_ms):.3f}; doh launches {n}")
+    log(f"graph: frame kinds over both {dict(kinds)}")
+    if min(kinds[k] for k in ("plain", "keyframe", "retrack", "coast")) < 1:
+        raise AssertionError(f"phase 12 lacks a kind of frame: {dict(kinds)}")
+
+    # a chunk with every synchronising call an error, on a graph that the
+    # chunk before it captured
+    state0 = F.init_state(arc[0], np.zeros(3), maps, cfg)
+    g = F.StepGraph(maps, cfg)
+    ref_state, ref_outs = F.slam_step_chunk(state0, arc[1:], maps, cfg, g)
+    torch.cuda.synchronize()
+    row_b = sum(t[0].nbytes for t in g.state.map if t.dim())
+    map_b = sum(t.nbytes for t in g.state.map)
+    rest_b = sum(t.nbytes for name, t in zip(F.SlamState._fields, g.state) if name != "map")
+    log(f"graph bytes a frame at {cfg.max_keyframes} keyframes: the masked map write reads and "
+        f"writes one row, {row_b} B each way (+ the cursor), where the eager step copies the "
+        f"whole map, {map_b} B each way; the rest of the state copied over, {rest_b} B each "
+        f"way; the input staged, {arc[0].nbytes} B (u8)")
+    before = doh_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c_state, c_outs = F.slam_step_chunk(state0, arc[1:], maps, cfg, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    n = doh_cuda.launches - before
+    launches += n
+    if n != len(arc) - 1 or not states_equal(c_state, ref_state) or not all(
+            torch.equal(a, b) for a, b in zip(c_outs, ref_outs)):
+        raise AssertionError(f"the chunk under set_sync_debug_mode('error') differs or "
+                             f"launched {n} DoH kernels")
+    log(f"graph chunk of {len(arc) - 1} frames under set_sync_debug_mode('error'): no sync, "
+        f"equal to the chunk before it bit for bit")
+
+    # the traced windows: the graph's replays and the eager step
+    gtr = bench.trace_window(arc, maps, cfg, GRAPH_TRACE_STEPS, graph=True)
+    etr = bench.trace_window(arc, maps, cfg, GRAPH_TRACE_STEPS)
+    launches += gtr.doh_launches
+    log(f"graph traced window of {GRAPH_TRACE_STEPS} replays: {len(gtr.doh_ms)} DoH kernels "
+        f"traced == {gtr.doh_launches} launches counted; device busy {gtr.busy_ms:.3f} ms a "
+        f"step, window {gtr.window_ms:.3f} ms, idle share {1 - gtr.busy_ms / gtr.window_ms:.4f}; "
+        f"eager: busy {etr.busy_ms:.3f} ms, window {etr.window_ms:.3f} ms, idle share "
+        f"{1 - etr.busy_ms / etr.window_ms:.4f}; doh in the graph "
+        f"{statistics.mean(gtr.doh_ms):.5f} ms a launch; phase 12 in {time.time() - t0:.1f} s")
+    if len(gtr.doh_ms) != gtr.doh_launches or gtr.busy_ms <= 0:
+        raise AssertionError("graph trace: DoH kernels != launches, or no device activity")
+    return launches, statistics.mean(gtr.doh_ms)
 
 
 def main() -> int:
@@ -1624,7 +1776,17 @@ def main() -> int:
                            bound_ms=bound, bound_by=bound_by,
                            bound_share=bound / device_ms, library_ms=None)
 
-    # 4. main path at the default config
+    # 4. main path at the default config; the chunk's graph is captured
+    # first, by one step (its warm-up launches DoH once, its replay once),
+    # so the counts below hold the path's own launches
+    t = time.time()
+    state0 = F.init_state(frames[0], np.zeros(3), maps, cfg)
+    graph = F.StepGraph(maps, cfg)
+    graph.load(state0)
+    graph.step(torch.as_tensor(frames[1], device="cuda"))
+    torch.cuda.synchronize()
+    log(f"step graph captured in {time.time() - t:.2f} s (init_state, then one step: a "
+        f"warm-up step, the capture and a replay)")
     doh_cuda.launches = 0
     t = time.time()
     state0 = F.init_state(frames[0], np.zeros(3), maps, cfg)
@@ -1652,15 +1814,15 @@ def main() -> int:
         f"final drift {drift:.3f} m")
     if not np.isfinite(est).all():
         raise AssertionError(f"non-finite pose: {est}")
-    if launches < 1 + sum(rt):
-        raise AssertionError(f"doh launches {launches} < 1 + retracks {sum(rt)}")
+    if launches != 1 + len(outs):
+        raise AssertionError(f"doh launches {launches} != 1 + {len(outs)} frames")
     if not drift < 1.5:
         raise AssertionError(f"drift {drift} m >= 1.5 m over {N_FRAMES} frames")
 
     doh_cuda.launches = 0
     t = time.time()
     state_c, outs_c = F.slam_step_chunk(
-        state0, torch.as_tensor(frames[1:], device="cuda"), maps, cfg)
+        state0, torch.as_tensor(frames[1:], device="cuda"), maps, cfg, graph)
     torch.cuda.synchronize()
     chunk_launches = doh_cuda.launches
     log(f"slam_step_chunk x{len(outs)}: {(time.time() - t) * 1e3 / len(outs):.2f} ms/frame, "
@@ -1673,9 +1835,13 @@ def main() -> int:
     if unequal or chunk_launches != launches - init_launches:
         raise AssertionError(f"chunk != per-frame: fields {unequal} differ, "
                              f"launches {chunk_launches} vs {launches - init_launches}")
-    log("chunk == per-frame: every output field equal bit for bit")
+    if not states_equal(state_c, state):
+        raise AssertionError("chunk's final state != the per-frame loop's")
+    log("chunk (graph) == per-frame (eager): every output field and state leaf equal "
+        "bit for bit")
 
-    # the same step on the card and on the CPU (plain twins) at a small config
+    # the same chunk on the card (graph) and on the CPU (plain twins) at a
+    # small config
     small = SlamConfig(**SMALL)
     _, sframes = render_frames(small, 5, seed=1)
     res = {}
@@ -1730,9 +1896,10 @@ def main() -> int:
     log(f"driver == per-frame loop bit for bit (trajectory, every state leaf); resume at "
         f"frame {CHECKPOINT_AT} == straight run bit for bit; metrics {len(recs)} rows; "
         f"drift {drift_d:.3f} m")
-    log_profile(f"driver step {CHECKPOINT_AT + 1} profiled", *drv["profile"])
+    log_profile(f"eager step {CHECKPOINT_AT + 1} from the driver's checkpoint profiled",
+                *drv["profile"])
     if drv["profile"][2] <= 0:
-        raise AssertionError("the profiled driver step shows no device activity")
+        raise AssertionError("the profiled step shows no device activity")
     log(f"record_function range, profiler off: {range_overhead_us():.2f} us on the host")
 
     # 6. FMT at full width on a pure turn, then card vs CPU at the small config
@@ -1823,11 +1990,15 @@ def main() -> int:
     # 11. the bench, in-process and cut to a smoke run
     bench_launches = bench_checks(torch, cfg)
 
+    # 12. the step's CUDA graph against the eager step
+    graph_launches, doh_row["graph_device_ms"] = graph_checks(torch, cfg, maps, frames,
+                                                              fcfg, turn)
+
     by_path = {"step": launches, "driver": driver_launches, "fmt_step": fmt_launches,
                "backend_driver": bk["launches"], "eval": eval_launches,
                "batch_odometry": batch_launches, "png_driver": png_launches,
                "cli": cli_launches, "profile_stages": profile_launches,
-               "bench": bench_launches}
+               "bench": bench_launches, "graph": graph_launches}
     doh_row["launches"] = sum(by_path.values())
     doh_row["launches_by_path"] = by_path
     print(card_line(), flush=True)

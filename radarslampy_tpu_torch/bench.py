@@ -1,7 +1,7 @@
 """Benchmark of the SLAM step on the card: the port of the repo's root `bench.py`.
 
-    python -m radarslampy_tpu_torch.bench [--cpu] [--seed 0] [--frames 200]
-        [--trials 3] [--chunk 100] [--trace-frames 20] [--out FILE]
+    python -m radarslampy_tpu_torch.bench [--cpu] [--seed 0]
+        [--frames 200] [--trials 3] [--chunk 100] [--trace-frames 20] [--out FILE]
 
 Workload (bench.py's, `make_workload`): `SlamConfig()` at full width (1024^2
 grid, sigma 1, 5, 10, K 256); a curve of 2.5 m (10 m/s at 4 Hz) and 0.03 rad
@@ -10,15 +10,24 @@ polar scans with noise 0.02, rendered in bench.py's rng order from `--seed`.
 4 warm-up frames, then `--frames` measured ones.  Every scan is on the device
 before anything is timed.
 
-Paths, each timed over the measured frames exactly once a trial:
+Paths, each timed over the measured frames exactly once a trial, on the
+step's CUDA graph (`frontend.StepGraph`, as bench.py times the jitted,
+donated step and chunk; each trial has its own graph, captured in its
+warm-up):
 
-    per_call_sync  slam_step, then torch.cuda.synchronize() after each frame,
-                   a host clock per frame      (a live consumer at 4 Hz)
-    per_dispatch   slam_step with no sync in the loop; one sync and a fetch
-                   of state.pose at the end    (offline, one call a frame)
+    per_call_sync  one replay, then torch.cuda.synchronize() after each
+                   frame, a host clock per frame   (a live consumer at 4 Hz)
+    per_dispatch   one replay a frame with no sync in the loop; one sync and
+                   a fetch of the pose at the end  (offline, one call a frame)
     chunked        slam_step_chunk over chunks of `--chunk` frames (views of
-                   the scans on the device); one sync and a fetch at the end
-                                               (offline, a recorded sequence)
+                   the scans on the device: the graph replayed a frame, no
+                   sync); one sync and a fetch at the end
+                                                   (offline, a recorded sequence)
+
+Each kept output is a copy of the graph's packed row (one device copy a
+frame).  The eager step is not timed here: it is the parent commit's step,
+and this bench's eager traced window reads its stages, busy time and idle
+share.
 
 Every trial of every path starts from `init_state` on scan 0 and steps the
 warm-up scans 1..4 untimed.  (bench.py's chunked path starts its first chunk
@@ -34,13 +43,14 @@ poses against the rendered ground truth is under 5 m (a lost track).
 
 Read besides time, never inside a timed trial: DoH launches per trial
 (`ops/cuda/doh_cuda.launches`), keyframes and retracks (`StepOutput`); and,
-after the trials, one torch.profiler window over `init_state`,
-`--trace-frames` per-call steps and `init_state` again (`trace_window`), from
-which come the device's busy time and idle share over the steps' window,
-each `slam_step.<stage>` range's host and device ms per step
-(`utils/profiling.step_profile`), and the DoH kernel's device ms per launch
-against its bound (`doh_cuda.doh_bound_ms`).  A trace that lost device
-events raises (`check_trace`).
+after the trials, torch.profiler windows over `init_state`, `--trace-frames`
+per-call steps and `init_state` again: one of the eager step (`trace_window`),
+from which come each `slam_step.<stage>` range's host and device ms per step
+(`utils/profiling.step_profile`) and the DoH kernel's device ms per launch
+against its bound (`doh_cuda.doh_bound_ms`); and one of the graph's replays
+(`graph=True`).  The device's busy time and idle share come from the window
+of the replays, the step the paths timed.  A trace that lost
+device events raises (`check_trace`).
 
 No whole-step bound: bench.py's FLOP floor counted the TPU's Toeplitz DoH
 matmuls against TPU peaks.  The step is host-bound (the device idles most of
@@ -60,15 +70,20 @@ Output: the last stdout line is one JSON object (also written to `--out`):
   ({path: {min, max, trials}} frames/s), per_call_ms_p50, per_call_ms_p95,
   per_call_samples (per_call_sync's host ms per frame, pooled over trials),
   trace_frames, device_idle_share, device_busy_ms and trace_window_ms (per
-  traced step; the profiler stretches the host's time, so the window is
-  longer than an untraced step), device_idle_share_untraced (1 - the traced
-  busy ms over per_call_ms_p50), stages ({stage: {host_ms, device_ms}} per
-  traced step), doh_launches ({path: launches per trial over the measured
-  frames}), doh_launches_total (every launch of the run, the traced window
-  included), trace_lost_unread (launches in the window's unread opening
-  init_state that the trace holds no device event of), doh_device_ms (per launch), doh_bound_ms, doh_bound_by, doh_bound_share,
-  ate_m, fit_ok_share, keyframes, retracks (per trial over the measured
-  frames), step_bound (null) and step_bound_note.
+  traced step of the timed step; the profiler stretches the host's time, so
+  the window is longer than an untraced step), device_idle_share_untraced
+  (1 - the traced busy ms over per_call_ms_p50), eager_window ({busy_ms,
+  window_ms, idle_share} of the eager window), stages
+  ({stage: {host_ms, device_ms}} per traced eager step), doh_launches
+  ({path: launches per trial over the measured frames: one a frame, the step
+  detects on every frame}), doh_launches_total (every launch of the run, the
+  graphs' warm-up and the traced windows included), trace_lost_unread
+  (launches in the windows' unread opening init_state that the trace holds no
+  device event of), doh_device_ms (per launch, in the eager window),
+  doh_graph_device_ms (per launch inside the traced replays), doh_bound_ms,
+  doh_bound_by, doh_bound_share, ate_m, fit_ok_share, keyframes, retracks
+  (per trial over the measured frames), step_bound (null) and
+  step_bound_note.
 """
 
 from __future__ import annotations
@@ -91,8 +106,8 @@ from radarslampy_tpu_torch.models.trajectory import compute_rmse
 from radarslampy_tpu_torch.ops.cuda import doh_cuda
 from radarslampy_tpu_torch.sim import fakedata as fd
 from radarslampy_tpu_torch.utils.checkpoint import states_equal
-from radarslampy_tpu_torch.utils.profiling import (card_line, lost_launches, step_profile,
-                                                   synchronize)
+from radarslampy_tpu_torch.utils.profiling import (card_line, device_busy_us, lost_launches,
+                                                   step_profile, synchronize)
 
 PATHS = ("per_call_sync", "per_dispatch", "chunked")
 N_WARM = 4
@@ -133,39 +148,42 @@ class Trial(NamedTuple):
 
 
 def run_trial(path: str, scans, maps, cfg: SlamConfig, chunk: int = 100) -> Trial:
-    """One trial of `path`: init_state and the N_WARM warm-up steps untimed,
-    then the measured scans scans[N_WARM + 1:] once, timed on the host clock."""
-    state = F.init_state(scans[0], np.zeros(3), maps, cfg)
+    """One trial of `path` on its own StepGraph: init_state and the N_WARM
+    warm-up steps untimed (the first captures the graph), then the measured
+    scans scans[N_WARM + 1:] once, timed on the host clock."""
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; one of {PATHS}")
+    g = F.StepGraph(maps, cfg)
+    g.load(F.init_state(scans[0], np.zeros(3), maps, cfg))
     for i in range(1, N_WARM + 1):
-        state, _ = F.slam_step(state, scans[i], maps, cfg)
-    synchronize(state.pose)
+        g.step(scans[i])
+    synchronize(g.state.pose)
     timed = scans[N_WARM + 1:]
     launches0 = doh_cuda.launches
-    frame_ms, outs = [], []
+    frame_ms, rows, outs = [], [], []
     t0 = time.perf_counter()
     if path == "per_call_sync":
         for scan in timed:
             t = time.perf_counter()
-            state, out = F.slam_step(state, scan, maps, cfg)
-            synchronize(state.pose)
+            row = g.step(scan)
+            synchronize(row)
             frame_ms.append((time.perf_counter() - t) * 1e3)
-            outs.append(out)
+            rows.append(row.clone())
     elif path == "per_dispatch":
         for scan in timed:
-            state, out = F.slam_step(state, scan, maps, cfg)
-            outs.append(out)
-    elif path == "chunked":
-        for part in torch.split(timed, chunk):
-            state, out = F.slam_step_chunk(state, part, maps, cfg)
-            outs.append(out)
+            rows.append(g.step(scan).clone())
     else:
-        raise ValueError(f"unknown path {path!r}; one of {PATHS}")
+        state = g.snapshot()
+        for part in torch.split(timed, chunk):
+            state, out = F.slam_step_chunk(state, part, maps, cfg, g)
+            outs.append(out)
+    state = state if outs else g.snapshot()
     synchronize(state.pose)
     state.pose.cpu()   # the states chain, so this fetch waits for every step
     seconds = time.perf_counter() - t0
     launches = doh_cuda.launches - launches0
-    join = torch.cat if path == "chunked" else torch.stack
-    stacked = F.StepOutput(*(join(field) for field in zip(*outs)))
+    stacked = (F.StepOutput(*(torch.cat(field) for field in zip(*outs))) if outs
+               else F.unpack_output(torch.stack(rows)))
     return Trial(len(timed) / seconds, frame_ms, state, stacked, launches)
 
 
@@ -178,9 +196,14 @@ class TraceReading(NamedTuple):
     lost_unread: int        # launches before the first step whose device events are lost
 
 
-def trace_window(scans, maps, cfg: SlamConfig, steps: int) -> TraceReading:
+def trace_window(scans, maps, cfg: SlamConfig, steps: int, graph: bool = False) -> TraceReading:
     """Under torch.profiler (CUDA activity on the card): init_state on scan 0,
-    `steps` per-call steps on scans 1..steps, then init_state again.
+    `steps` per-call steps on scans 1..steps, then init_state again.  With
+    `graph` the steps are replays of a StepGraph captured before the window
+    (on an init_state and one step of its own, so that no capture is
+    traced), each (its input's staging copy and its replay) inside one
+    "step_graph.step" range, then a sync; a replay has no ranges inside it,
+    so there are no stages.
 
     Only the steps are read, and the DoH kernels from the first step's start
     on: the second init_state puts a DoH launch there whatever the steps
@@ -196,18 +219,39 @@ def trace_window(scans, maps, cfg: SlamConfig, steps: int) -> TraceReading:
 
     on_card = scans.device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    g = None
+    if graph:
+        g = F.StepGraph(maps, cfg)
+        g.load(F.init_state(scans[0], np.zeros(3), maps, cfg))
+        synchronize(g.step(scans[1]))
     with profile(activities=activities) as prof:
         state = F.init_state(scans[0], np.zeros(3), maps, cfg)
         synchronize(state.pose)
+        if graph:
+            g.load(state)
         launches0 = doh_cuda.launches
         for scan in scans[1:steps + 1]:
-            state, _ = F.slam_step(state, scan, maps, cfg)
-            synchronize(state.pose)
+            if graph:
+                synchronize(g.step(scan))
+            else:
+                state, _ = F.slam_step(state, scan, maps, cfg)
+                synchronize(state.pose)
         synchronize(F.init_state(scans[0], np.zeros(3), maps, cfg).pose)
-    stages, window_ms, busy_ms = step_profile(prof, steps)
     events = prof.events()
-    t0 = min(e.time_range.start for e in events
-             if e.device_type == DeviceType.CPU and e.name == "slam_step")
+    if graph:
+        replays = [e for e in events
+                   if e.device_type == DeviceType.CPU and e.name == "step_graph.step"]
+        if len(replays) != steps:
+            raise ValueError(f"expected {steps} step_graph.step ranges, got {len(replays)}")
+        t0 = min(e.time_range.start for e in replays)
+        t1 = max(e.time_range.end for e in replays)
+        stages, window_ms = {}, (t1 - t0) / 1e3
+        busy_ms = device_busy_us(events, t0, t1,
+                                 skip=lambda e: e.name.startswith("step_graph")) / 1e3
+    else:
+        stages, window_ms, busy_ms = step_profile(prof, steps)
+        t0 = min(e.time_range.start for e in events
+                 if e.device_type == DeviceType.CPU and e.name == "slam_step")
     doh_ms = [e.time_range.elapsed_us() / 1e3 for e in events
               if e.device_type != DeviceType.CPU and "doh_kernel" in e.name
               and e.time_range.start >= t0]
@@ -261,8 +305,9 @@ def _power_limit_w(card: str):
 
 def run_bench(cfg: SlamConfig, device="cuda", seed: int = 0, frames: int = 200,
               trials: int = 3, chunk: int = 100, trace_frames: int = 20) -> dict:
-    """Render the workload, run every path `trials` times in turns, check the
-    trials, trace `trace_frames` steps -> the result object."""
+    """Render the workload, run every path `trials` times in turns on the
+    step's graph, check the trials, trace `trace_frames` eager steps and
+    replays -> the result object."""
     dev = resolve_device(device)
     if not (frames >= 1 and trials >= 1 and chunk >= 1
             and 1 <= trace_frames <= N_WARM + frames):
@@ -294,9 +339,10 @@ def run_bench(cfg: SlamConfig, device="cuda", seed: int = 0, frames: int = 200,
                            f"the track is lost")
     keyframes, retracks, _ = _counts(ref)
 
-    tr = trace_window(scans, maps, cfg, trace_frames)
+    eager_tr = trace_window(scans, maps, cfg, trace_frames)
+    tr = trace_window(scans, maps, cfg, trace_frames, graph=True)
     bound, bound_by = doh_cuda.doh_bound_ms(cfg.cart_size, maps.doh.radii)
-    doh_ms = statistics.mean(tr.doh_ms) if tr.doh_ms else None
+    doh_ms = statistics.mean(eager_tr.doh_ms) if eager_tr.doh_ms else None
     samples = [ms for r in runs["per_call_sync"] for ms in r.frame_ms]
     p50 = float(np.percentile(samples, 50))
     fps = {p: [r.fps for r in runs[p]] for p in PATHS}
@@ -336,12 +382,16 @@ def run_bench(cfg: SlamConfig, device="cuda", seed: int = 0, frames: int = 200,
         "device_idle_share_untraced": on_device(1.0 - tr.busy_ms / p50),
         "device_busy_ms": on_device(tr.busy_ms),
         "trace_window_ms": tr.window_ms,
+        "eager_window": {
+            "busy_ms": on_device(eager_tr.busy_ms), "window_ms": eager_tr.window_ms,
+            "idle_share": on_device(1.0 - eager_tr.busy_ms / eager_tr.window_ms)},
         "stages": {name.split(".", 1)[-1]: {"host_ms": h, "device_ms": on_device(d)}
-                   for name, (h, d) in tr.stages.items()},
+                   for name, (h, d) in eager_tr.stages.items()},
         "doh_launches": {p: runs[p][0].doh_launches for p in PATHS},
         "doh_launches_total": doh_cuda.launches - launches_start,
-        "trace_lost_unread": on_device(tr.lost_unread),
+        "trace_lost_unread": on_device(tr.lost_unread + eager_tr.lost_unread),
         "doh_device_ms": on_device(doh_ms),
+        "doh_graph_device_ms": on_device(statistics.mean(tr.doh_ms) if tr.doh_ms else None),
         "doh_bound_ms": bound,
         "doh_bound_by": bound_by,
         "doh_bound_share": on_device(bound / doh_ms if doh_ms else None),
@@ -357,8 +407,8 @@ def run_bench(cfg: SlamConfig, device="cuda", seed: int = 0, frames: int = 200,
             k: "not measured: the run was on the CPU (--cpu)"
             for k in ("device_kind", "card", "power_limit_w", "device_idle_share",
                       "device_idle_share_untraced", "device_busy_ms", "stages.device_ms",
-                      "trace_lost_unread",
-                      "doh_device_ms", "doh_bound_share")}
+                      "trace_lost_unread", "eager_window.busy_ms", "eager_window.idle_share",
+                      "doh_device_ms", "doh_graph_device_ms", "doh_bound_share")}
     return result
 
 

@@ -15,7 +15,9 @@ Three paths, as in the JAX harness: scans rendered on the device in chunks
 (`chunk_frames > 0`, the default `device_render`), rendered on the host in
 chunks through `slam_step_chunk`, or rendered on the host as float scans
 frame by frame (`chunk_frames=0`).  Everything runs on `device` ("cuda" by
-default; "cpu" only when asked).
+default; "cpu" only when asked).  Every step is a replay of the step's CUDA
+graph (`frontend.StepGraph`, as the JAX harness jits its step and chunk); on
+the CPU the eager step.
 
 The JAX harness's workarounds for the TPU client change nothing here and are
 kept only so that calls and artifacts match: `consolidate_every` (device-side
@@ -157,30 +159,38 @@ def make_eval_chunk(cfg: SlamConfig, noise: float, k_vis: int = 512,
     the device): per frame [x, y, theta, n_inliers, fit_ok, did_retrack].
     Padded tail frames (`valid[i]` False) neither render nor step; their rows
     echo the state's pose with zeros in the last three columns.  Each frame's
-    noise generator is seeded by `frame_seed(seed, frame id)`.
+    noise generator is seeded by `frame_seed(seed, frame id)`.  The step is
+    the returned function's own StepGraph (one for the `maps` of its latest
+    call): loaded with the state, replayed a frame, and the state returned
+    is a copy of the graph's.
     `fusion_barrier` has no effect (the renderer and the step are separate
-    eager calls)."""
+    calls)."""
     del fusion_barrier
+    graph = None
 
     def chunk_fn(state, poses_f, vels_f, frame_ids, valid, seed, wp, wr, maps):
+        nonlocal graph
         dev = state.pose.device
         f32 = state.pose.dtype
         poses_f = torch.as_tensor(poses_f, dtype=f32, device=dev)
         vels_f = torch.as_tensor(vels_f, dtype=f32, device=dev)
+        if graph is None or graph.maps is not maps:
+            graph = frontend.StepGraph(maps, cfg)
+        graph.load(state)
         rows = []
         for i, ok in enumerate(np.asarray(valid, bool)):
             if not ok:
-                rows.append(torch.cat([state.pose, torch.zeros(3, dtype=f32, device=dev)]))
+                rows.append(torch.cat([graph.state.pose,
+                                       torch.zeros(3, dtype=f32, device=dev)]))
                 continue
             gen = torch.Generator(device=dev)
             gen.manual_seed(frame_seed(seed, int(frame_ids[i])))
             scan = render_polar_scan_device(wp, wr, poses_f[i], vels_f[i], gen, cfg,
                                             noise=noise, k_vis=k_vis, mode=renderer)
-            state, out = frontend.slam_step(state, quantize_u8(scan) if quantize else scan,
-                                            maps, cfg)
-            rows.append(torch.cat([out.pose, torch.stack([
-                out.n_inliers.to(f32), out.fit_ok.to(f32), out.did_retrack.to(f32)])]))
-        return state, torch.stack(rows)
+            row = graph.step(quantize_u8(scan) if quantize else scan)
+            # [x, y, theta, n_inliers, fit_ok, did_retrack] of the packed row
+            rows.append(torch.cat([row[0:3], row[4:6], row[7:8]]))
+        return graph.snapshot(), torch.stack(rows)
 
     return chunk_fn
 
@@ -288,8 +298,7 @@ def evaluate_sequence(
             noise=noise, mode=renderer,
         )
 
-    def step(state, scan):
-        return frontend.slam_step(state, scan, maps, cfg)
+    graph = frontend.StepGraph(maps, cfg)   # this run's step
 
     def online(state, backend_state):
         return incremental_backend(state, cfg, backend_state=backend_state)
@@ -438,13 +447,14 @@ def evaluate_sequence(
             if F == chunk_frames:
                 block = np.stack([to_u8(render(t + k)) for k in range(F)])
                 state, outs = frontend.slam_step_chunk(
-                    state, torch.as_tensor(block, device=dev), maps, cfg)
+                    state, torch.as_tensor(block, device=dev), maps, cfg, graph)
                 device_poses.extend(outs.pose[:F])
             else:
                 # tail shorter than a chunk: frame by frame
+                graph.load(state)
                 for k in range(F):
-                    state, out = step(state, to_u8(render(t + k)))
-                    device_poses.append(out.pose)
+                    device_poses.append(graph.step(to_u8(render(t + k)))[0:3].clone())
+                state = graph.snapshot()
             t += F
             if backend_every and (t - 1) % backend_every < F:
                 state, nl, _, backend_state = online(state, backend_state)
@@ -452,17 +462,19 @@ def evaluate_sequence(
             if progress_every and (t // progress_every) != ((t - F) // progress_every):
                 print(f"  frame {t}/{T}", flush=True)
     else:
+        graph.load(state)
         for t in range(1, T):
-            state, out = step(state, render(t))
-            device_poses.append(out.pose)
+            device_poses.append(graph.step(render(t))[0:3].clone())
             if backend_every and t % backend_every == 0:
-                state, nl, _, backend_state = online(state, backend_state)
+                state, nl, _, backend_state = online(graph.snapshot(), backend_state)
+                graph.load(state)
                 n_online_loops += nl
                 if progress_every and nl:
                     print(f"  frame {t}: online backend closed {nl} loops",
                           flush=True)
             if progress_every and t % progress_every == 0:
                 print(f"  frame {t}/{T}", flush=True)
+        state = graph.snapshot()
     _sync(dev)
     fps = max(T - fps_base, 1) / (time.perf_counter() - t0)
 

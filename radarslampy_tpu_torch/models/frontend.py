@@ -1,4 +1,5 @@
-"""The per-frame SLAM step on tensors: init_state, slam_step, slam_step_chunk.
+"""The per-frame SLAM step on tensors: init_state, slam_step, slam_step_chunk,
+and StepGraph, the step captured as one CUDA graph.
 
 Counterpart of `radarslampy_tpu/models/frontend.py`.  One radar frame goes
 through
@@ -10,18 +11,33 @@ through
     context, map write)
 
 with the JAX package's fixed shapes and masks and the same state containers.
-Differences in form, not in result:
-  * The keyframe and retrack decisions are taken on the host (one device sync
-    per frame) where the JAX step uses `lax.cond`; the peeling loop in
-    `ops/robust.py` syncs every few steps as well.
-  * `slam_step_chunk` is a Python loop over `slam_step` (the JAX package's
-    `lax.scan`).
-  * State updates are functional: the map is copied on a keyframe write
-    (index_copy), so a state passed in is never modified.
+The step never waits for the device: no value goes to the host, no shape
+depends on data, and no host data is copied to the device (tables such as
+filter taps are made once per device).  Differences in form, not in result:
+  * The keyframe and retrack decisions are selections, not branches: both
+    sides run on every frame and `torch.where` takes one, as the JAX step's
+    `lax.cond` does under `vmap`.  The branches run the same ops on the same
+    inputs, so the selected values keep their bits.  Re-detection (DoH +
+    ANMS) therefore runs on every frame, and the map write is masked: at the
+    cursor, the new row where a keyframe is made and the old row elsewhere;
+    the cursor advances by the flag.
+  * The peeling loop of `ops/robust.py` runs its K bounded steps on the
+    device (the JAX package's `lax.while_loop` stops at convergence; a step
+    after it changes nothing).
+  * `slam_step` is functional: the map is copied on its masked write, so a
+    state passed in is never modified.
+  * `StepGraph` is the counterpart of `jax.jit(slam_step,
+    donate_argnums=(0,))`: on the card it captures one step on its own state
+    buffers and replays it, writing the map's row in place; `slam_step_chunk`
+    replays it F times with no host sync, as the JAX chunk's `lax.scan` is
+    one dispatch.  On the CPU both run the eager step.  A graph holds the
+    state it advances, so each caller owns its own (a driver, a harness run,
+    a bench trial); nothing shares one across callers.
 
-Each stage runs inside a `torch.profiler.record_function` range named
-"slam_step.<stage>" (the whole step: "slam_step"), so a profiler trace reads
-each stage's host and device time from the step itself.
+Each stage of the eager step runs inside a `torch.profiler.record_function`
+range named "slam_step.<stage>" (the whole step: "slam_step"), so a profiler
+trace reads each stage's host and device time from the step itself.  A step
+of StepGraph runs inside one range, "step_graph.step".
 
 Conventions: the Cartesian image has the sensor at its centre; local metric
 coords are (px - centre) * cart_resolution_m; a pose [x, y, theta] maps local
@@ -31,7 +47,7 @@ to world.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -40,6 +56,7 @@ from radarslampy_tpu_torch import resolve_device
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.models.placerecog import scan_context
 from radarslampy_tpu_torch.ops import geometry as geo
+from radarslampy_tpu_torch.ops.cuda import doh_cuda
 from radarslampy_tpu_torch.ops.cuda.doh_cuda import DohFilters, build_doh_filters
 from radarslampy_tpu_torch.ops.features import get_features, merge_features, top_k_stable
 from radarslampy_tpu_torch.ops.fmt import estimate_rotation_fmt
@@ -48,6 +65,7 @@ from radarslampy_tpu_torch.ops.grid import (LogPolarMap, WarpMaps, build_logpola
 from radarslampy_tpu_torch.ops.motion import solve_motion, undistort
 from radarslampy_tpu_torch.ops.pointcloud import extract_pointcloud
 from radarslampy_tpu_torch.ops.robust import reject_outliers
+from radarslampy_tpu_torch.ops.tables import kept_by
 from radarslampy_tpu_torch.ops.tracking import track_klt
 
 
@@ -175,14 +193,25 @@ def _features_to_world(px, mask, pose, velocity, cfg: SlamConfig):
             torch.where(keep, world, torch.zeros_like(world)))
 
 
-def _write_keyframe(m: MapState, pose, feat_world, feat_local, feat_ids, feat_mask,
-                    velocity, descriptor, pc_local, pc_mask, frame_idx) -> MapState:
+def _write_keyframe(m: MapState, make_kf, pose, feat_world, feat_local, feat_ids,
+                    feat_mask, velocity, descriptor, pc_local, pc_mask, frame_idx,
+                    in_place: bool = False) -> MapState:
+    """The masked keyframe write: at the cursor (clamped to the last row),
+    the new row where `make_kf` and the old row elsewhere; the cursor
+    advances by `make_kf` (clamped to M).  Functional (each buffer copied)
+    unless `in_place`, which writes the one row into `m`'s own buffers: the
+    graph's state, whose map moves one row a frame."""
     M = m.poses.shape[0]
     c = torch.clamp(m.cursor, max=M - 1).to(torch.int64).reshape(1)
 
     def upd(buf, row):
-        return buf.index_copy(0, c, row.to(buf.dtype).reshape((1,) + buf.shape[1:]))
+        old = buf.index_select(0, c)
+        new = torch.where(make_kf, row.to(buf.dtype).reshape(old.shape), old)
+        return buf.index_copy_(0, c, new) if in_place else buf.index_copy(0, c, new)
 
+    cursor = torch.clamp(m.cursor + make_kf.to(torch.int32), max=M).to(torch.int32)
+    if in_place:
+        cursor = m.cursor.copy_(cursor)
     return MapState(
         poses=upd(m.poses, pose),
         feat_world=upd(m.feat_world, feat_world),
@@ -190,7 +219,7 @@ def _write_keyframe(m: MapState, pose, feat_world, feat_local, feat_ids, feat_ma
         feat_ids=upd(m.feat_ids, feat_ids),
         feat_mask=upd(m.feat_mask, feat_mask),
         velocities=upd(m.velocities, velocity),
-        cursor=torch.clamp(m.cursor + 1, max=M).to(torch.int32),
+        cursor=cursor,
         descriptors=upd(m.descriptors, descriptor),
         pc_local=upd(m.pc_local, pc_local),
         pc_mask=upd(m.pc_mask, pc_mask),
@@ -222,9 +251,10 @@ def init_state(polar0, init_pose, maps: FrameMaps, cfg: SlamConfig) -> SlamState
     vel = torch.zeros(3, dtype=cart.dtype, device=dev)
     feat_local, feat_world = _features_to_world(coords, mask, pose, vel, cfg)
     pc_pts, pc_ok = keyframe_pointcloud(polar0, vel, cfg)
-    m = _write_keyframe(empty_map(cfg, cart.dtype, dev), pose, feat_world, feat_local,
-                        ids, mask, vel, scan_context(polar0, cfg), pc_pts, pc_ok,
-                        _i32(0, dev))
+    m = _write_keyframe(empty_map(cfg, cart.dtype, dev),
+                        torch.ones((), dtype=torch.bool, device=dev), pose, feat_world,
+                        feat_local, ids, mask, vel, scan_context(polar0, cfg), pc_pts,
+                        pc_ok, _i32(0, dev))
     return SlamState(pose=pose, velocity=vel, prev_polar=polar0, prev_cart=cart,
                      feat_px=coords, feat_mask=mask, feat_id=ids, next_id=next_id,
                      feat_world=feat_world, kf_pose=pose, map=m, frame_idx=_i32(0, dev))
@@ -236,7 +266,8 @@ def slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig):
         return _slam_step(state, polar, maps, cfg)
 
 
-def _slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig):
+def _slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig,
+               in_place: bool = False):
     dev = state.pose.device
     with record_function("slam_step.warp"):
         polar = _dequantize_polar(torch.as_tensor(polar, device=dev))
@@ -301,48 +332,225 @@ def _slam_step(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig):
         velocity = torch.where(confident, vel_meas, state.velocity)
         fit_ok = fit_ok & confident
 
-    # ---- keyframe decision (taken on the host: one sync) ----
+    # ---- keyframe and retrack decision, taken on the device ----
     with record_function("slam_step.decision"):
-        retrack_t = n_inliers <= cfg.n_features_before_retrack
+        retrack = n_inliers <= cfg.n_features_before_retrack
         dth_kf = torch.abs(geo.wrap_angle(pose[2] - state.kf_pose[2]))
         dtrans2 = torch.sum((pose[:2] - state.kf_pose[:2]) ** 2)
         kf_good = (dth_kf >= cfg.kf_rot_threshold_rad) | (dtrans2 >= cfg.kf_trans_threshold_m**2)
-        make_kf_t = retrack_t | kf_good
-        make_kf, retrack = (bool(b) for b in torch.stack([make_kf_t, retrack_t]).tolist())
+        make_kf = retrack | kf_good
 
+    # ---- both sides of each decision on every frame, then a selection ----
     frame_idx = (state.frame_idx + 1).to(torch.int32)
-    if make_kf:
-        with record_function("slam_step.keyframe"):
-            coords, mask = tr.coords, live
-            if retrack:
-                coords, mask = merge_features(coords, mask, get_features(cart, cfg, maps.doh))
-            ids, next_id = assign_new_ids(live, mask, state.feat_id, state.next_id)
-            feat_local, feat_world = _features_to_world(coords, mask, pose, velocity, cfg)
-            pc_pts, pc_ok = keyframe_pointcloud(polar, velocity, cfg)
-            new_map = _write_keyframe(state.map, pose, feat_world, feat_local, ids, mask,
-                                      velocity, scan_context(polar, cfg), pc_pts, pc_ok,
-                                      frame_idx)
-            kf_pose = pose
-    else:
-        coords, mask = tr.coords, live
-        ids, next_id = state.feat_id, state.next_id
-        feat_world, kf_pose, new_map = state.feat_world, state.kf_pose, state.map
+    with record_function("slam_step.detect"):
+        merged, merged_mask = merge_features(tr.coords, live, get_features(cart, cfg, maps.doh))
+        kf_coords = torch.where(retrack, merged, tr.coords)
+        kf_mask = torch.where(retrack, merged_mask, live)
+    with record_function("slam_step.keyframe"):
+        kf_ids, kf_next_id = assign_new_ids(live, kf_mask, state.feat_id, state.next_id)
+        feat_local, kf_world = _features_to_world(kf_coords, kf_mask, pose, velocity, cfg)
+        pc_pts, pc_ok = keyframe_pointcloud(polar, velocity, cfg)
+        new_map = _write_keyframe(state.map, make_kf, pose, kf_world, feat_local, kf_ids,
+                                  kf_mask, velocity, scan_context(polar, cfg), pc_pts, pc_ok,
+                                  frame_idx, in_place)
+        coords = torch.where(make_kf, kf_coords, tr.coords)
+        mask = torch.where(make_kf, kf_mask, live)
+        ids = torch.where(make_kf, kf_ids, state.feat_id)
+        next_id = torch.where(make_kf, kf_next_id, state.next_id)
+        feat_world = torch.where(make_kf, kf_world, state.feat_world)
+        kf_pose = torch.where(make_kf, pose, state.kf_pose)
 
     new_state = SlamState(pose=pose, velocity=velocity, prev_polar=polar, prev_cart=cart,
                           feat_px=coords, feat_mask=mask, feat_id=ids, next_id=next_id,
                           feat_world=feat_world, kf_pose=kf_pose, map=new_map,
                           frame_idx=frame_idx)
     out = StepOutput(pose=pose, velocity=velocity, n_tracked=n_tracked,
-                     n_inliers=n_inliers, is_keyframe=make_kf_t, did_retrack=retrack_t,
+                     n_inliers=n_inliers, is_keyframe=make_kf, did_retrack=retrack,
                      fmt_rotation=fmt_rot, fit_ok=fit_ok, fmt_scale=fmt_scale)
     return new_state, out
 
 
-def slam_step_chunk(state: SlamState, polars, maps: FrameMaps, cfg: SlamConfig):
-    """F frames [F, A, Wpad] through `slam_step` in turn -> (state, StepOutput
-    with every field stacked to [F, ...])."""
-    outs = []
+def slam_step_chunk(state: SlamState, polars, maps: FrameMaps, cfg: SlamConfig,
+                    graph: Optional["StepGraph"] = None):
+    """F frames [F, A, Wpad] through the step -> (state, StepOutput with every
+    field stacked to [F, ...]).
+
+    On the card: `graph` (a StepGraph on `maps` and `cfg`; a new one when
+    None, which captures again) is loaded with `state` and replayed F times
+    with no host sync (each scan staged into the graph's input by a device
+    copy, each packed output copied into an [F, 13] buffer); the returned
+    state is a clone of the graph's.  A caller that steps chunk after chunk
+    passes its own graph.  On the CPU: `slam_step` in turn."""
+    if graph is not None and (graph.maps is not maps or graph.cfg != cfg):
+        raise ValueError("slam_step_chunk: the graph was built on other maps or config")
+    if not state.pose.is_cuda:
+        outs = []
+        for f in range(len(polars)):
+            state, out = slam_step(state, polars[f], maps, cfg)
+            outs.append(out)
+        return state, StepOutput(*(torch.stack(field) for field in zip(*outs)))
+    if graph is None:
+        graph = StepGraph(maps, cfg)
+    graph.load(state)
+    polars = torch.as_tensor(polars, device=state.pose.device)
+    packed = torch.empty((len(polars), PACKED_WIDTH), dtype=state.pose.dtype,
+                         device=state.pose.device)
     for f in range(len(polars)):
-        state, out = slam_step(state, polars[f], maps, cfg)
-        outs.append(out)
-    return state, StepOutput(*(torch.stack(field) for field in zip(*outs)))
+        packed[f].copy_(graph.step(polars[f]))
+    return graph.snapshot(), unpack_output(packed)
+
+
+# ---- the step as one CUDA graph ----
+
+PACKED_WIDTH = 13   # see pack_output
+
+
+def pack_output(out: StepOutput) -> torch.Tensor:
+    """A StepOutput as one float row [13]: [x, y, theta, n_tracked,
+    n_inliers, fit_ok, is_keyframe, did_retrack] (the JAX driver's per-frame
+    row), then [vx, vy, omega, fmt_rotation, fmt_scale].  Counts and flags
+    are exact in float32, so `unpack_output` gives the output back bit for
+    bit."""
+    f = out.pose.dtype
+    return torch.cat([out.pose, torch.stack([
+        out.n_tracked.to(f), out.n_inliers.to(f), out.fit_ok.to(f),
+        out.is_keyframe.to(f), out.did_retrack.to(f)]), out.velocity,
+        torch.stack([out.fmt_rotation.to(f), out.fmt_scale.to(f)])])
+
+
+def unpack_output(packed: torch.Tensor) -> StepOutput:
+    """`pack_output`'s rows [..., 13] -> StepOutput with fields [...]; the
+    float fields are views of `packed`."""
+    p = packed
+    return StepOutput(pose=p[..., 0:3], velocity=p[..., 8:11],
+                      n_tracked=p[..., 3].to(torch.int64), n_inliers=p[..., 4].to(torch.int64),
+                      is_keyframe=p[..., 6] != 0, did_retrack=p[..., 7] != 0,
+                      fmt_rotation=p[..., 11], fit_ok=p[..., 5] != 0, fmt_scale=p[..., 12])
+
+
+def _leaves(state: SlamState):
+    return [t for x in state for t in (x if isinstance(x, MapState) else (x,))]
+
+
+def clone_state(state: SlamState) -> SlamState:
+    return SlamState(*(MapState(*(t.clone() for t in x)) if isinstance(x, MapState)
+                       else x.clone() for x in state))
+
+
+def _advance(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig, packed):
+    """One step that writes the next state into `state`'s own buffers (the
+    map's one row in place, the rest copied over) and the packed output into
+    `packed`: the body that StepGraph captures.  Every field of the step's
+    new state is a new tensor (or the input scan), so no copy reads a buffer
+    that an earlier copy wrote."""
+    new, out = _slam_step(state, polar, maps, cfg, in_place=True)
+    for name in SlamState._fields:
+        if name != "map":
+            getattr(state, name).copy_(getattr(new, name))
+    packed.copy_(pack_output(out))
+
+
+class StepGraph:
+    """The step as one CUDA graph: the port's counterpart of the JAX
+    driver's `jax.jit(slam_step, donate_argnums=(0,))`.
+
+    On the card, the first `step` for an input dtype and shape (u8 or
+    float32 scans) runs one step eagerly on a side stream, on a clone of the
+    state (it builds cuFFT plans, library handles and the DoH kernel's launch
+    plan), then captures one step on the graph's own buffers: the state, a
+    static input scan and a packed output row [13] (`pack_output`).  A
+    replay advances the state in place, as a donated state is; the map moves
+    one row a frame.  Captures of one StepGraph share a memory pool.  A
+    capture reads the maps, its buffers and the small device tables of
+    `ops/tables.py` by address; the StepGraph holds every one of them
+    (`kept_by`), so none is freed while it can replay.  The DoH wrapper
+    counts its launch once at capture, where nothing runs: the count is taken
+    back there, and each replay adds the launches it captured.  A capture or
+    replay that fails raises; nothing falls back to the eager step.
+
+    The contract: `load(state)` copies a state in (after `init_state`, after
+    the back-end re-anchors the map, after a resume).  `step(scan)` returns
+    the packed row, which the next `step` overwrites, as it does `state`;
+    whatever a caller keeps past the next step is a copy: `output()`,
+    `snapshot()`, `packed.clone()`.  One StepGraph serves one caller: a
+    second caller that loads its state into it takes the first one's place.
+
+    On the CPU the same calls run `slam_step` (functional, so nothing needs
+    copying); the caller asked for the CPU, so this is not a fallback."""
+
+    def __init__(self, maps: FrameMaps, cfg: SlamConfig):
+        self.maps, self.cfg = maps, cfg
+        self.device = maps.warp.idx0.device
+        self.on_card = self.device.type == "cuda"
+        self.state: Optional[SlamState] = None
+        self.packed: Optional[torch.Tensor] = None
+        self._graphs = {}   # (dtype, shape) -> (CUDAGraph, static scan, DoH launches)
+        self._pool = None
+        self._tables = []   # the device tables the captures read
+
+    def load(self, state: SlamState) -> None:
+        if not self.on_card:
+            self.state = state
+            return
+        if self.state is None:
+            self.state = clone_state(state)
+            self.packed = torch.zeros(PACKED_WIDTH, dtype=state.pose.dtype,
+                                      device=self.device)
+            return
+        for dst, src in zip(_leaves(self.state), _leaves(state), strict=True):
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"state leaf {tuple(src.shape)} {src.dtype} does not fit "
+                                 f"the graph's {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+
+    def step(self, scan) -> torch.Tensor:
+        """One frame: the packed output row [13] (see the class docstring).
+        Runs inside one `record_function` range, "step_graph.step": on the
+        card the input's staging copy and the replay."""
+        if self.state is None:
+            raise RuntimeError("StepGraph.step before load(state)")
+        with record_function("step_graph.step"):
+            if not self.on_card:
+                self.state, out = slam_step(self.state, scan, self.maps, self.cfg)
+                self.packed = pack_output(out)
+                return self.packed
+            scan = torch.as_tensor(scan, device=self.device)
+            graph, static, launches = self._graph_for(scan)
+            static.copy_(scan)
+            graph.replay()
+        doh_cuda.launches += launches
+        return self.packed
+
+    def output(self) -> StepOutput:
+        return unpack_output(self.packed.clone())
+
+    def snapshot(self) -> SlamState:
+        return clone_state(self.state) if self.on_card else self.state
+
+    def _graph_for(self, scan):
+        key = (scan.dtype, tuple(scan.shape))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(scan)
+        return self._graphs[key]
+
+    def _capture(self, scan):
+        if self.state is None:
+            raise RuntimeError("StepGraph capture before load(state)")
+        static = scan.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            _advance(clone_state(self.state), static, self.maps, self.cfg,
+                     torch.empty_like(self.packed))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = doh_cuda.launches
+        try:
+            with kept_by(self._tables), torch.cuda.graph(graph, pool=self._pool):
+                _advance(self.state, static, self.maps, self.cfg, self.packed)
+        finally:
+            launches = doh_cuda.launches - before
+            doh_cuda.launches = before
+        self._pool = graph.pool()
+        return graph, static, launches
+

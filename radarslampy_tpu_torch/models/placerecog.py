@@ -186,7 +186,7 @@ def m2dp_descriptor(points, mask, n_dirs: int = 16, n_bins: int = 24,
 def _linspace_f32(n: int, device):
     """`jnp.linspace(0, pi, n, endpoint=False)` in float32: pi * (k / n)."""
     step = torch.arange(n, dtype=torch.float32, device=device) / n
-    return torch.tensor(math.pi, dtype=torch.float32, device=device) * step
+    return torch.full((), math.pi, dtype=torch.float32, device=device) * step
 
 
 def m2dp_from_map(m, n_dirs: int = 16, n_bins: int = 24, radius_m: float = 80.0,

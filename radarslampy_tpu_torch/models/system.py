@@ -2,9 +2,10 @@
 
 Counterpart of `radarslampy_tpu/models/system.py`.  Host work only: PNG
 decode ahead of the step (the C++ decode pool of `io/native_loader.py` where
-it builds, else PIL in worker threads), `frontend.slam_step` on the device for
-each frame, and the trajectory, per-frame metrics, checkpoints and figures
-around it.
+it builds, else PIL in worker threads), the step on the device for each frame
+(`frontend.StepGraph`: one CUDA graph replay a frame on the card, the eager
+step on the CPU), and the trajectory, per-frame metrics, checkpoints and
+figures around it.
 
 Usage:
     sys = RadarSlamSystem("tiny", data_root="data")      # device="cuda"
@@ -123,15 +124,6 @@ class _Prefetcher:
             yield frame
 
 
-def _row(out: frontend.StepOutput) -> torch.Tensor:
-    """[x, y, theta, n_tracked, n_inliers, fit_ok, is_keyframe, did_retrack]
-    of one frame, kept on the step's device until the run fetches all rows."""
-    f32 = out.pose.dtype
-    return torch.cat([out.pose, torch.stack([
-        out.n_tracked.to(f32), out.n_inliers.to(f32), out.fit_ok.to(f32),
-        out.is_keyframe.to(f32), out.did_retrack.to(f32)])])
-
-
 def _fetch(rows: List[torch.Tensor]) -> np.ndarray:
     if not rows:
         return np.zeros((0, 8), np.float32)
@@ -160,6 +152,11 @@ class RadarSlamSystem:
             self.paths["radar"], self.paths["timestamps"]
         )
         self.maps = frontend.build_frame_maps(cfg, self.device)
+        # the step, the counterpart of the JAX driver's `_compiled_fns` and
+        # `_compiled_row_step`: this system's own StepGraph, which packs the
+        # frame's row inside the graph.  A graph holds the state it
+        # advances, so no two systems share one.
+        self._graph = frontend.StepGraph(self.maps, cfg)
         self.progress = progress
 
         # ground truth (optional: a sequence may not ship one)
@@ -207,7 +204,7 @@ class RadarSlamSystem:
     @staticmethod
     def _write_metrics(path, start, stamps, rows, online_events):
         """Write the per-frame JSONL metrics, one record per stepped frame
-        (`rows`: the fetched [n, 8] per-frame block, see `_row`), with
+        (`rows`: the fetched [n, 8] per-frame block, see `frontend.pack_output`), with
         `online_loops_closed` on frames whose online pass closed loops."""
         with open(path, "w") as f:
             for k, (ts, row) in enumerate(zip(stamps, rows)):
@@ -259,6 +256,12 @@ class RadarSlamSystem:
         added since the last pass, re-solves the pose graph and feeds the
         corrected poses back into the running state; 0 = none.  The final
         checkpoint holds that re-anchored state.
+
+        The step is this system's StepGraph: the run loads its state into
+        the graph, and the graph advances it in place; what the
+        run keeps past a frame (the per-frame row, the `progress` output, the
+        state handed to the back-end or to a checkpoint, the final state) is
+        a copy.
 
         `viz_dir`: every `viz_every` frames a composite of the tracked
         features over the current Cartesian scan and the trajectory so far
@@ -324,40 +327,45 @@ class RadarSlamSystem:
         rows: List[torch.Tensor] = []
         viz_poses: List[np.ndarray] = []
         viz_stamps: List[int] = []
+        graph = self._graph
+        graph.load(state)
         for frame in it:
-            state, out = frontend.slam_step(state, frame.power, self.maps, cfg)
+            row = graph.step(frame.power)
             stamps.append(frame.frame_timestamp)
-            rows.append(_row(out))
+            rows.append(row[:8].clone())
             n += 1
             last_abs += 1
             if n == 1:
                 _sync(dev)
                 t0 = time.perf_counter()
             if self.progress is not None:
-                self.progress(n, out)
+                self.progress(n, graph.output())
             if backend_every and n % backend_every == 0:
                 state, nl, _, backend_state = incremental_backend(
-                    state, cfg, backend_state=backend_state)
+                    graph.snapshot(), cfg, backend_state=backend_state)
+                graph.load(state)
                 n_online_loops += nl
                 if nl:
                     online_events[start + n] = nl
             if plots is not None and viz_every and n % viz_every == 0:
-                viz_poses.append(out.pose.cpu().numpy())
+                viz_poses.append(row[:3].cpu().numpy())
                 # the GT at the frames whose poses are drawn
                 viz_stamps.append(frame.frame_timestamp)
                 gt_xy = (None if self.gt_traj is None
                          else np.asarray(self.gt_traj.pose_at_times(viz_stamps))[:, :2])
+                now = graph.state
                 plots.plot_frame_composite(
-                    state.prev_cart.cpu().numpy(), state.feat_px.cpu().numpy(),
-                    state.feat_mask.cpu().numpy(), gt_xy, np.stack(viz_poses)[:, :2],
+                    now.prev_cart.cpu().numpy(), now.feat_px.cpu().numpy(),
+                    now.feat_mask.cpu().numpy(), gt_xy, np.stack(viz_poses)[:, :2],
                     os.path.join(viz_dir, f"frame_{start + n:06d}.jpg"),
                     title=f"frame {start + n}")
             if checkpoint_dir and checkpoint_every and n % checkpoint_every == 0:
                 partial = Trajectory(est.timestamps, est.poses)
                 for ts, pose in zip(stamps, _fetch(rows)[:, :3]):
                     partial.append(ts, pose)
-                save_state(checkpoint_dir, state, partial,
+                save_state(checkpoint_dir, graph.snapshot(), partial,
                            meta={"next_frame_index": last_abs + 1})
+        state = graph.snapshot()
         _sync(dev)
         dt = time.perf_counter() - t0
         rows_np = _fetch(rows)

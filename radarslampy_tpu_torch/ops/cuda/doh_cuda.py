@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from radarslampy_tpu_torch import resolve_device
+from radarslampy_tpu_torch.ops.tables import device_table
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "doh.cu"
@@ -325,7 +326,7 @@ def kernel_info(radius: int, n_sigma: int = 1) -> dict:
                 smem_bytes=smem)
 
 
-@functools.lru_cache(maxsize=64)
+@device_table(maxsize=64)
 def _launch_plan(S: int, radii: tuple, device: torch.device):
     """The launch geometry for the card `device` and its schedule there."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count

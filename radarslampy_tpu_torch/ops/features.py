@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.ops.cuda import doh_cuda
 from radarslampy_tpu_torch.ops.cuda.doh_cuda import DohFilters
+from radarslampy_tpu_torch.ops.tables import device_table
 
 
 class Candidates(NamedTuple):
@@ -34,12 +35,24 @@ def top_k_stable(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+@device_table(maxsize=64)
+def _gaussian_taps(sigma: float, dtype, device):
+    return torch.as_tensor(doh_cuda.gaussian_taps(sigma), dtype=dtype, device=device)
+
+
+@device_table(maxsize=16)
+def _sigma_table(sigmas: tuple, device):
+    """`cfg.doh_sigmas` as a float32 tensor, made once per device: a copy
+    from the host in every step could not be captured in a CUDA graph."""
+    return torch.tensor(sigmas, dtype=torch.float32, device=device)
+
+
 def gaussian_blur(img, sigma: float):
     """Separable Gaussian blur of a [H, W] image, zero padding (the JAX
     package's `gaussian_blur`); sigma < 0.3 returns the image."""
     if sigma < 0.3:
         return img
-    k = torch.as_tensor(doh_cuda.gaussian_taps(sigma), dtype=img.dtype, device=img.device)
+    k = _gaussian_taps(float(sigma), img.dtype, img.device)
     r = k.shape[0] // 2
     x = F.conv2d(img[None, None], k.view(1, 1, 1, -1), padding=(0, r))
     return F.conv2d(x, k.view(1, 1, -1, 1), padding=(r, 0))[0, 0]
@@ -72,7 +85,7 @@ def detect_blobs_from_response(resp, cfg: SlamConfig) -> Candidates:
     rem = idx % (H * W)
     yy = (rem // W).to(torch.float32)
     xx = (rem % W).to(torch.float32)
-    sig = torch.tensor(cfg.doh_sigmas, dtype=torch.float32, device=resp.device)[sidx]
+    sig = _sigma_table(tuple(cfg.doh_sigmas), resp.device)[sidx]
     ok = torch.isfinite(vals)
     return Candidates(
         xy=torch.stack([xx, yy], dim=-1),

@@ -51,9 +51,11 @@ def phase_correlate(a, b):
     py, px = idx // W, idx % W
     ym, yp = (py - 1) % H, (py + 1) % H
     xm, xp = (px - 1) % W, (px + 1) % W
-    c0 = corr[py, px]
-    dy_sub = _parabolic(corr[ym, px], c0, corr[yp, px])
-    dx_sub = _parabolic(corr[py, xm], c0, corr[py, xp])
+    # one gather: indexing with 0-dim tensors would read them to the host
+    c0, cym, cyp, cxm, cxp = torch.take(corr, torch.stack(
+        [py * W + px, ym * W + px, yp * W + px, py * W + xm, py * W + xp])).unbind()
+    dy_sub = _parabolic(cym, c0, cyp)
+    dx_sub = _parabolic(cxm, c0, cxp)
 
     dy = torch.where(py > H // 2, py - H, py).to(a.dtype) + dy_sub
     dx = torch.where(px > W // 2, px - W, px).to(a.dtype) + dx_sub
@@ -89,7 +91,7 @@ def estimate_rotation_fmt(prev_polar, curr_polar, cfg: SlamConfig,
     dy, dx, resp = phase_correlate(a.contiguous(), b.contiguous())
     rot = -dy * 2.0 * math.pi / A
     if grid is not None:
-        scale = torch.tensor(grid.log_base, dtype=a.dtype, device=a.device) ** (-dx * ds)
+        scale = torch.full((), grid.log_base, dtype=a.dtype, device=a.device) ** (-dx * ds)
     else:
         scale = torch.ones_like(dx)
     return FmtResult(rot_rad=rot, scale=scale, response=resp)

@@ -57,8 +57,8 @@ def invert_transform(T):
     Rt = R.transpose(-1, -2)
     ti = -Rt @ t
     top = torch.cat([Rt, ti], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=T.dtype, device=T.device)
-    bottom = bottom.expand(T.shape[:-2] + (1, 3))
+    bottom = torch.zeros(T.shape[:-2] + (1, 3), dtype=T.dtype, device=T.device)
+    bottom[..., 2] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

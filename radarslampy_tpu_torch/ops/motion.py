@@ -22,6 +22,7 @@ import torch
 
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.ops import geometry as geo
+from radarslampy_tpu_torch.ops.tables import device_table
 
 
 def compute_time_deltas(points, period: float):
@@ -117,6 +118,13 @@ def _jacobian(params, pose_prev, p_w, p_jt, times, mask, n_valid, info_p, info_v
     return torch.cat([j_p, j_v])
 
 
+@device_table(maxsize=32)
+def _information(sigma, dtype, device):
+    """1 / sqrt(sigma) (a number or a tuple), made once per dtype and device:
+    a copy from the host in every step could not be captured in a CUDA graph."""
+    return 1.0 / torch.sqrt(torch.tensor(sigma, dtype=dtype, device=device))
+
+
 def solve_motion(pose_prev, p_w, p_jt, pose_init, mask, cfg: SlamConfig) -> MotionSolution:
     """Fixed-budget LM over [v; x, y, theta].
 
@@ -128,8 +136,8 @@ def solve_motion(pose_prev, p_w, p_jt, pose_init, mask, cfg: SlamConfig) -> Moti
     times = compute_time_deltas(p_jt, period)
     n_valid = torch.sum(mask.to(dtype))
     ok = n_valid >= 3.0
-    info_p = 1.0 / torch.sqrt(torch.tensor(cfg.mds_sigma_p, dtype=dtype, device=dev))
-    info_v = 1.0 / torch.sqrt(torch.tensor(cfg.mds_sigma_v, dtype=dtype, device=dev))
+    info_p = _information(cfg.mds_sigma_p, dtype, dev)
+    info_v = _information(cfg.mds_sigma_v, dtype, dev)
 
     fixed = (pose_prev, p_w, p_jt, times, mask, n_valid, info_p, info_v, period)
 
@@ -139,7 +147,7 @@ def solve_motion(pose_prev, p_w, p_jt, pose_init, mask, cfg: SlamConfig) -> Moti
 
     p = torch.cat([relative_velocity(pose_prev, pose_init, period), pose_init])
     p0 = p
-    lam = torch.tensor(cfg.mds_init_lambda, dtype=dtype, device=dev)
+    lam = torch.full((), cfg.mds_init_lambda, dtype=dtype, device=dev)
     cost = cost_of(p)
     for _ in range(cfg.mds_iterations):
         r = _residuals(p, *fixed)

@@ -6,11 +6,18 @@ within the threshold; the active feature with the most violations is dropped
 (ties to the lowest index) until the survivors are mutually consistent.
 
 The JAX package runs this as an unbounded `lax.while_loop` that recounts all
-violations each step.  Here the loop is bounded at K steps and keeps the
-per-node violation counts up to date incrementally (dropping node w removes
-column w), which gives the same sequence of drops.  A step after convergence
-changes nothing, so the host checks for convergence (one device sync) only
-every `_CHECK_EVERY` steps.
+violations each step.  Here the loop runs K steps on the device with no host
+check, and keeps the per-node violation counts up to date incrementally
+(dropping node w subtracts column w of the violation matrix), which
+gives the same sequence of drops.  A step after convergence (no count above
+0) changes nothing, so the K bounded steps end where the while loop does.
+
+Each step is four launches: `max` (value and first index of the largest
+count), `clamp` (1 when that count is above 0, else 0), the column of the
+dropped node, and `addcmul`.  The column's diagonal entry is K + 1, so a dropped
+node's count goes below 0 and stays there; nodes outside `mask` hold 0 and
+are never dropped; so a count above 0 belongs to a surviving node, and the
+survivors are `mask` & (count >= 0).
 """
 
 from __future__ import annotations
@@ -20,8 +27,6 @@ from typing import NamedTuple
 import torch
 
 from radarslampy_tpu_torch.config import SlamConfig
-
-_CHECK_EVERY = 16
 
 
 def _pairwise_dist(pts):
@@ -43,15 +48,11 @@ def reject_outliers(prev_coords, new_coords, mask, cfg: SlamConfig) -> RejectRes
     eye = torch.eye(K, dtype=torch.bool, device=mask.device)
     bad = (mask[:, None] & mask[None, :] & ~eye & ~compat).to(torch.int32)
     viol = bad.sum(dim=1)        # violations among active nodes (0 if inactive)
-    active = mask.clone()
-    minus_one = torch.full_like(viol, -1)
-    for it in range(K):
-        if it % _CHECK_EVERY == 0 and not bool((viol > 0).any()):
-            break
-        worst = torch.argmax(torch.where(active, viol, minus_one))
-        drop = viol[worst] > 0   # False once converged: the step is a no-op
-        active[worst] = active[worst] & ~drop
-        viol = viol - bad[:, worst] * drop.to(torch.int32)
-        viol = torch.where(active, viol, torch.zeros_like(viol))
+    cols = (bad + eye.to(torch.int32) * (K + 1)).T.contiguous()   # row w: column w
+    for _ in range(K):
+        worst_n, worst = torch.max(viol, dim=0)
+        viol = torch.addcmul(viol, cols.index_select(0, worst.reshape(1))[0],
+                             torch.clamp(worst_n, 0, 1), value=-1)
+    active = mask & (viol >= 0)
     return RejectResult(inlier_mask=active,
                         n_inliers=torch.sum(active.to(torch.int32)))

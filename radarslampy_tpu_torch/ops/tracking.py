@@ -15,12 +15,19 @@ import torch
 import torch.nn.functional as F
 
 from radarslampy_tpu_torch.config import SlamConfig
+from radarslampy_tpu_torch.ops.tables import device_table
+
+
+@device_table(maxsize=16)
+def _binomial_taps(dtype, device):
+    """[1, 4, 6, 4, 1]/16, made once per dtype and device: a copy from the
+    host in every step could not be captured in a CUDA graph."""
+    return torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], dtype=dtype, device=device) / 16.0
 
 
 def _blur_small(img):
     """5-tap binomial blur [1, 4, 6, 4, 1]/16, separable, zero padding."""
-    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], dtype=img.dtype,
-                     device=img.device) / 16.0
+    k = _binomial_taps(img.dtype, img.device)
     x = F.conv2d(img[None, None], k.view(1, 1, 1, 5), padding=(0, 2))
     x = F.conv2d(x, k.view(1, 1, 5, 1), padding=(2, 0))
     return x[0, 0]

@@ -8,11 +8,11 @@ rank advances its segments one frame at a time in lock-step, one port
 at the end and joined by chaining relative poses (`join_segments`).  There is
 no collective in the per-frame loop.
 
-Difference in form: the JAX package vmaps the step over the segments, so both
-`lax.cond` branches of the keyframe/retrack decision run on every frame; the
-port's step takes that decision on the host and launches the DoH kernel only
-on a retrack, so it runs the segments in turn.  The poses agree with the JAX
-package's within the bound its own tests set for that difference.
+Difference in form: the JAX package vmaps the step over the segments; the
+port runs the eager `slam_step` of each segment in turn, with no batched step
+and no CUDA graph.  Its decision is a selection on the device, as under the
+JAX package's vmap, so DoH runs on every frame of every segment.  The poses
+agree with the JAX package's within the bound its own tests set.
 """
 
 from __future__ import annotations

@@ -139,6 +139,16 @@ def test_trace_window_reads_each_stage(paths):
     assert tr.busy_ms == 0.0 and tr.doh_ms == [] and tr.doh_launches == tr.lost_unread == 0
 
 
+def test_graph_trace_window_reads_the_steps(paths):
+    """The graph's traced window on the CPU: one "step_graph.step" range a
+    step, a window, no device activity, no stages."""
+    cfg, _, scans, _ = paths
+    maps = F.build_frame_maps(cfg, "cpu")
+    tr = bench.trace_window(torch.as_tensor(scans), maps, cfg, 1, graph=True)
+    assert tr.stages == {} and tr.window_ms > 0
+    assert tr.busy_ms == 0.0 and tr.doh_ms == [] and tr.doh_launches == tr.lost_unread == 0
+
+
 def test_entry_point_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -166,10 +176,11 @@ def test_cpu_entry_point_prints_bench_py_s_keys(tmp_path, monkeypatch):
               "device_kind"):
         assert k in res, k
     assert res["device"] == "cpu" and res["value"] == res["chunked_fps"] > 0
+    assert res["eager_window"]["busy_ms"] is None and res["eager_window"]["window_ms"] > 0
     assert (res["chunk_frames"], res["measured_frames"], res["per_call_samples"]) == (2, 3, 3)
     for k in ("device_kind", "card", "power_limit_w", "device_idle_share",
               "device_idle_share_untraced", "device_busy_ms", "doh_device_ms",
-              "doh_bound_share", "trace_lost_unread"):
+              "doh_bound_share", "trace_lost_unread", "doh_graph_device_ms"):
         assert res[k] is None and "not measured" in res["not_measured"][k], k
     assert all(v["device_ms"] is None and v["host_ms"] > 0 for v in res["stages"].values())
     assert res["step_bound"] is None and res["step_bound_note"]

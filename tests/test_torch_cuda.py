@@ -284,6 +284,147 @@ def test_bench_on_the_card(cuda):
     assert res["doh_device_ms"] > 0 and res["doh_bound_share"] > 0
     assert res["ate_m"] < bench.ATE_LIMIT_M and res["keyframes"] == 10
     assert all(res[f"{p}_fps"] > 0 for p in bench.PATHS)
-    # one launch per retrack on each path and trial, plus the traced window's init
-    assert res["doh_launches"] == {p: res["retracks"] for p in bench.PATHS}
-    assert res["doh_launches_total"] >= 3 * (1 + res["retracks"]) + 1
+    # one launch a frame on each path and trial (the step detects on every
+    # frame and selects), plus each trial's init and the traced windows
+    assert res["doh_launches"] == {p: 10 for p in bench.PATHS}
+    assert res["doh_launches_total"] >= 3 * (1 + 10) + 1
+
+
+GRAPH_KW = dict(cart_size=256, cart_downsample=16, n_candidates=256, max_keyframes=16)
+
+
+def _graph_case(cuda, n=6):
+    """Maps, init_state and u8 frames (one a scan of noise: a coast) of a
+    short track at a small config, on the card."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.sim import fakedata as fd
+
+    cfg = SlamConfig(**GRAPH_KW)
+    poses = np.array([[1.2 * t, 0.0, 0.0] for t in range(n)])
+    frames = np.stack([np.clip(np.round(s * 255.0), 0, 255).astype(np.uint8)
+                       for _, s in fd.render_sequence(np.random.default_rng(3), poses, cfg,
+                                                      n_landmarks=1200, noise=0.01)])
+    frames[-2] = np.random.default_rng(4).integers(0, 40, frames.shape[1:], dtype=np.uint8)
+    maps = F.build_frame_maps(cfg, cuda)
+    frames = torch.as_tensor(frames, device=cuda)
+    return cfg, maps, F.init_state(frames[0], np.zeros(3), maps, cfg), frames
+
+
+def test_step_graph_equals_the_eager_step(cuda):
+    """A fresh StepGraph's replays against slam_step, frame after frame: the
+    packed outputs and the state bit for bit; one DoH launch a frame on
+    either (and one more for the first step's warm-up)."""
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
+    cfg, maps, state, frames = _graph_case(cuda)
+    g = F.StepGraph(maps, cfg)
+    g.load(state)
+    for k, f in enumerate(frames[1:]):
+        before = doh_cuda.launches
+        state, out = F.slam_step(state, f, maps, cfg)
+        assert doh_cuda.launches == before + 1
+        row = g.step(f)
+        assert doh_cuda.launches == before + (3 if k == 0 else 2)
+        assert torch.equal(row, F.pack_output(out))
+        assert states_equal(g.state, state)
+    assert states_equal(g.snapshot(), state)
+
+
+def test_step_graph_counts_replays(cuda):
+    from radarslampy_tpu_torch.models import frontend as F
+
+    cfg, maps, state, frames = _graph_case(cuda)
+    g = F.StepGraph(maps, cfg)
+    g.load(state)
+    before = doh_cuda.launches
+    g.step(frames[1])
+    # the warm-up step and the first replay; the capture adds none
+    assert doh_cuda.launches == before + 2
+    before = doh_cuda.launches
+    for f in frames[2:]:
+        g.step(f)
+    assert doh_cuda.launches == before + len(frames) - 2
+
+
+def test_chunk_does_not_sync(cuda):
+    """slam_step_chunk on the card under set_sync_debug_mode("error"), once
+    its graph is captured; equal to the eager loop bit for bit."""
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
+    cfg, maps, state0, frames = _graph_case(cuda)
+    g = F.StepGraph(maps, cfg)
+    g.load(state0)
+    g.step(frames[1])       # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_c, outs = F.slam_step_chunk(state0, frames[1:], maps, cfg, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    state = state0
+    for k, f in enumerate(frames[1:]):
+        state, out = F.slam_step(state, f, maps, cfg)
+        assert torch.equal(F.pack_output(F.StepOutput(*(x[k] for x in outs))),
+                           F.pack_output(out))
+    assert states_equal(s_c, state)
+    assert int(state0.map.cursor) == 1      # the chunk's input state is left as it was
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here: one that reads a value to the
+    host) raises from `step`; nothing runs the eager step in its place."""
+    from radarslampy_tpu_torch.models import frontend as F
+
+    cfg, maps, state, frames = _graph_case(cuda, n=3)
+    real = F._slam_step
+
+    def reads_to_host(*args, **kwargs):
+        new, out = real(*args, **kwargs)
+        out.n_inliers.item()
+        return new, out
+
+    monkeypatch.setattr(F, "_slam_step", reads_to_host)
+    g = F.StepGraph(maps, cfg)
+    g.load(state)
+    eager = []
+    monkeypatch.setattr(F, "slam_step", lambda *a, **k: eager.append(1))
+    with pytest.raises(RuntimeError):
+        g.step(frames[1])
+    torch.cuda.synchronize()
+    assert eager == [] and not g._graphs
+
+
+def test_graph_keeps_the_tables_it_captured(cuda):
+    """A captured StepGraph reads the step's device tables (filter taps,
+    constants, the DoH schedule) by address.  With every table cache cleared
+    and the freed memory taken by other tensors, its replays still equal
+    slam_step bit for bit: the graph holds the tables it captured."""
+    import gc
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops import features, motion, tracking
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
+    cfg, maps, state, frames = _graph_case(cuda)
+    g = F.StepGraph(maps, cfg)
+    g.load(state)
+    state, out = F.slam_step(state, frames[1], maps, cfg)
+    assert torch.equal(g.step(frames[1]), F.pack_output(out))
+    assert g._tables
+    for cached in (features._gaussian_taps, features._sigma_table, tracking._binomial_taps,
+                   motion._information, doh_cuda._launch_plan):
+        cached.cache_clear()
+    gc.collect()
+    # small blocks of NaN where the freed tables would have been
+    filler = [torch.full((n,), float("nan"), device=cuda)
+              for n in (1, 3, 5, 16, 61, 128, 512) for _ in range(512)]
+    for f in frames[2:]:
+        state, out = F.slam_step(state, f, maps, cfg)
+        assert torch.equal(g.step(f), F.pack_output(out))
+        assert states_equal(g.state, state)
+    del filler
