@@ -75,10 +75,12 @@ Phases, one line each (elapsed seconds in brackets):
      solvers; (c) the sharded map queries on the 1,100-keyframe map, equal to
      the dense ones; (d) the sharded loop verification of that map's
      candidates against serial `verify_candidate`; (e) `run_segments` at
-     `SlamConfig()` over 4 segments of 8 frames of one arc, equal bit for
-     bit to the segments run one after another, with its frames/s, DoH
-     launches and `join_segments`; (f) the launcher's three benches (2 reps)
-     and `python -m radarslampy_tpu_torch.parallel.launch --spawn 1 --smoke`;
+     `SlamConfig()` over 4 segments of 8 frames of one arc, as one batch (the
+     batched step's CUDA graph), equal bit for bit to the segments run one
+     after another by the eager step (or within phase 13's rule), with its
+     frames/s, DoH launches (one a frame for the 4) and `join_segments`; (f)
+     the launcher's three benches (2 reps) and `python -m
+     radarslampy_tpu_torch.parallel.launch --spawn 1 --smoke`;
  10. the PNG path at `SlamConfig()`: (a) the host's g++, libpng headers,
      native loader (with g++'s first error line where it does not build),
      PIL, matplotlib and ffmpeg; (b) phase 4's frames written as Oxford PNGs
@@ -108,7 +110,22 @@ Phases, one line each (elapsed seconds in brackets):
      window of replays whose DoH kernels equal the launches counted; the
      graph's device ms a step (CUDA events around each replay, and the
      trace's busy time), host ms a replay and idle share beside the eager
-     step's.
+     step's;
+ 13. the batched step (`frontend.StepGraph(maps, cfg, batch=4)`, the
+     counterpart of the JAX package's `jit(vmap(slam_step))`) at
+     `SlamConfig()` over 4 segments of phase 9 (e)'s arc: (a) the DoH kernel
+     over [4, S, S] in one launch against four single launches (bit for
+     bit), through vmap's batching rule, and against its twin; its device
+     ms beside four single launches' and its bound; (b) the batched graph
+     against 4 single StepGraphs stepped in turn, every packed row and
+     final state bit for bit (or, where a batched library call changes
+     bits, equal flags and poses within one Cartesian pixel and 1/512 rad),
+     its DoH launches (one a frame for all 4), the batched state's bytes
+     and the device memory it holds; (d) frames/s of the batched graph, of
+     the 4 StepGraphs in turn, of the vmapped eager step and of the eager
+     step in turn, warm, and a replay's ms by CUDA events; (c) a traced
+     window of batched replays: DoH kernels traced == launches counted,
+     busy ms a replay and idle share.
 Then the card line again, one JSON line describing every kernel, and as the
 last line `{"ok": true, "device": {...}}`.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside this file, it
@@ -1073,9 +1090,11 @@ def parallel_queries(torch, cfg, mesh, m):
 
 def parallel_segments(torch, cfg, mesh, maps):
     """Phase 9 (e): `run_segments` over PAR_SEGMENTS segments of one rendered
-    arc (each PAR_SEG_FRAMES frames, overlapping by one) against the
-    segments run one after another by the port's step; DoH launches of
-    `run_segments`, its frames/s, and `join_segments` against the arc."""
+    arc (each PAR_SEG_FRAMES frames, overlapping by one), one batch on this
+    rank (the batched step's graph, captured inside the call), against the
+    segments run one after another by the port's eager step; DoH launches of
+    `run_segments`, its frames/s (cold: the capture inside), and
+    `join_segments` against the arc."""
     import numpy as np
 
     from radarslampy_tpu_torch.models import frontend as F
@@ -1100,6 +1119,10 @@ def parallel_segments(torch, cfg, mesh, maps):
         return out
 
     seq, s_seq = timed(torch, sequential)
+    # the rule of phase 13 where bits differ: poses within one Cartesian pixel
+    # and 1/512 rad (run_segments returns poses only; phase 13 holds the flags)
+    dxy = float(np.abs(poses[..., :2] - seq[..., :2]).max())
+    dth = float(np.abs(poses[..., 2] - seq[..., 2]).max())
     joined = bo.join_segments(list(poses))
     err = np.linalg.norm(joined[:, :2] - gt[:, :2], axis=1)
     # each segment against the arc seen from its first frame: the error after
@@ -1113,6 +1136,7 @@ def parallel_segments(torch, cfg, mesh, maps):
         seg_err.append((round(float(e[1]), 4), round(float(e[-1]), 4)))
     n_steps = PAR_SEGMENTS * step
     return dict(equal=bool(np.array_equal(poses, seq)), finite=bool(np.isfinite(poses).all()),
+                dxy=dxy, dth=dth, within=dxy <= cfg.cart_resolution_m and dth <= POSE_ROT_TOL,
                 launches=launches, fps=n_steps / (s_batched / 1e3),
                 sequential_fps=n_steps / (s_seq / 1e3), joined=joined, ate=float(
                     np.sqrt((err ** 2).mean())), drift=float(err[-1]), frames=len(joined),
@@ -1204,15 +1228,18 @@ def parallel_checks(torch, cfg, card, loop_state, scale, maps):
     if not (v["ok_equal"] and v["max_rel_diff"] <= PAR_REL and v["loops"] >= 1):
         raise AssertionError(f"parallel (d): sharded verification off serial: {v}")
     log(f"parallel (e): run_segments, {PAR_SEGMENTS} segments x {PAR_SEG_FRAMES} frames at "
-        f"SlamConfig(): equal bit for bit to the segments run one after another "
-        f"{segs['equal']}; {segs['fps']:.3f} frames/s (sequential {segs['sequential_fps']:.3f}) "
-        f"on {card}; doh launches {segs['launches']}; join_segments: {segs['frames']} frames, "
+        f"SlamConfig(), one batch (the batched graph): equal bit for bit to the segments run "
+        f"one after another {segs['equal']} (max pose diff {segs['dxy']:.3e} m, "
+        f"{segs['dth']:.3e} rad); {segs['fps']:.3f} frames/s cold (sequential eager "
+        f"{segs['sequential_fps']:.3f}) on {card}; doh launches {segs['launches']} (the init, "
+        f"the capture's warm-up, one a frame); join_segments: {segs['frames']} frames, "
         f"ATE {segs['ate']:.4f} m against the arc, end drift {segs['drift']:.4f} m, last pose "
         f"{[round(float(x), 4) for x in segs['joined'][-1]]}; each segment's error (m) after its "
         f"first step and at its end, against the arc from its first frame: {segs['seg_err']}")
-    if not (segs["equal"] and segs["finite"] and segs["launches"] >= PAR_SEGMENTS):
+    if not ((segs["equal"] or segs["within"]) and segs["finite"]
+            and segs["launches"] == PAR_SEG_FRAMES + 1):
         raise AssertionError("parallel (e): run_segments differs from the sequential runs or "
-                             "launched fewer DoH kernels than segments")
+                             "did not launch DoH once a frame for the batch")
     sm = benches.pop("smoke")
     for k, (st, what) in benches.items():
         log(f"parallel (f) bench {k}: median {st['median_s']} s (min {st['min_s']}, max "
@@ -1686,6 +1713,258 @@ def graph_checks(torch, cfg, maps, frames, fcfg, turn):
     return launches, statistics.mean(gtr.doh_ms)
 
 
+# Phase 13: the batched step.  BATCH_D segments of phase 9 (e)'s arc at
+# SlamConfig() through one StepGraph(maps, cfg, batch=BATCH_D), the
+# counterpart of the JAX package's jit(vmap(slam_step)), against BATCH_D
+# single StepGraphs stepped in turn.  Where bits differ, the rule of phase 8
+# (f) for two runs that each carry their own state: equal keyframe and
+# retrack flags, poses within one Cartesian pixel and 1/512 rad.
+BATCH_D = 4
+BATCH_PASSES = 3        # timed passes over the segments' frames (median)
+BATCH_TRACE_STEPS = 6   # batched replays in the traced window
+POSE_ROT_TOL = 1.0 / 512
+
+
+def rows_agree(torch, a, b, cfg):
+    """Packed rows [..., 13] of two runs -> (equal bit for bit, flags equal,
+    max |dx|, |dy| in m, max |dtheta| in rad, within the rule)."""
+    equal = torch.equal(a, b)
+    flags = torch.equal(a[..., 6:8], b[..., 6:8])
+    dxy = float((a[..., :2] - b[..., :2]).abs().max())
+    dth = float((a[..., 2] - b[..., 2]).abs().max())
+    return dict(equal=equal, flags=flags, dxy=dxy, dth=dth,
+                ok=equal or (flags and dxy <= cfg.cart_resolution_m and dth <= POSE_ROT_TOL))
+
+
+def batched_doh(torch, doh_cuda, imgs, filters):
+    """Phase 13 (a): one launch over the D images [D, S, S] against D single
+    launches (bit for bit), through vmap's batching rule, and each image
+    against the twin with phase 3's per-sigma tolerance; its device ms
+    (graph timer) beside D single launches', its ms through the wrapper, the
+    twin's, the bound of D images."""
+    D, S = imgs.shape[0], imgs.shape[-1]
+    before = doh_cuda.launches
+    out = doh_cuda.doh_response_cuda(imgs, filters)
+    one_launch = doh_cuda.launches - before == 1
+    vm = torch.func.vmap(lambda x: doh_cuda.doh_response(x, filters))(imgs)
+    singles = [doh_cuda.doh_response_cuda(imgs[d], filters) for d in range(D)]
+    refs = [doh_cuda.doh_response_reference(imgs[d], filters) for d in range(D)]
+    torch.cuda.synchronize()
+    equal = torch.equal(vm, out) and all(torch.equal(out[d], singles[d]) for d in range(D))
+    err, worst = 0.0, 0.0
+    for d in range(D):
+        for s in range(out.shape[1]):
+            e = float((out[d, s] - refs[d][s]).abs().max())
+            tol = 2e-3 * float(refs[d][s].abs().max())
+            if not (tol > 0 and e <= tol):
+                raise AssertionError(f"batched DoH off its twin: image {d}, sigma slice {s}, "
+                                     f"{e} > {tol}")
+            err, worst = max(err, e), max(worst, e / tol)
+    bound, bound_by = doh_cuda.doh_bound_ms(S, filters.radii, D)
+    return dict(equal=equal, one_launch=one_launch, max_abs_err=err, worst_share_of_tol=worst,
+                device_ms=graph_ms(lambda: doh_cuda.doh_response_cuda(imgs, filters)),
+                singles_device_ms=graph_ms(
+                    lambda: [doh_cuda.doh_response_cuda(imgs[d], filters) for d in range(D)],
+                    n=25),
+                wrapper_ms=time_ms(lambda: doh_cuda.doh_response_cuda(imgs, filters)),
+                plain_ms=time_ms(lambda: [doh_cuda.doh_response_reference(imgs[d], filters)
+                                          for d in range(D)], reps=5),
+                bound_ms=bound, bound_by=bound_by)
+
+
+def batched_trace(torch, F, g, s0, seg, steps):
+    """Phase 13 (c): `steps` replays of the captured batched graph `g` under
+    torch.profiler, each in its "step_graph.step" range and synchronised,
+    then a batched init_state (one DoH launch); read from the first replay
+    on -> (DoH kernels traced, launches counted, busy ms a replay, window ms
+    a replay).  A batched init_state and one replay open the window unread:
+    a trace that follows others in the process can lose the device events of
+    its first moments (`bench.trace_window`), and this one lost one launch
+    behind a lead-in of a load alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch import bench
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.utils.profiling import device_busy_us, lost_launches
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g.load(F.batched_init_state(seg[:, 0], torch.zeros(seg.shape[0], 3), g.maps, g.cfg))
+        g.step(seg[:, 1])
+        g.load(s0)
+        torch.cuda.synchronize()
+        launches0 = doh_cuda.launches
+        for t in range(1, steps + 1):
+            g.step(seg[:, t])
+            torch.cuda.synchronize()
+        F.batched_init_state(seg[:, 0], torch.zeros(seg.shape[0], 3), g.maps, g.cfg)
+        torch.cuda.synchronize()
+    events = prof.events()
+    replays = sorted((e for e in events if e.device_type == DeviceType.CPU
+                      and e.name == "step_graph.step"), key=lambda e: e.time_range.start)
+    if len(replays) != steps + 1:
+        raise AssertionError(f"expected {steps + 1} step_graph.step ranges (the lead-in's "
+                             f"and {steps} read), got {len(replays)}")
+    replays = replays[1:]
+    t0 = min(e.time_range.start for e in replays)
+    t1 = max(e.time_range.end for e in replays)
+    busy = device_busy_us(events, t0, t1, skip=lambda e: e.name.startswith("step_graph"))
+    doh = sum(1 for e in events if e.device_type != DeviceType.CPU and "doh_kernel" in e.name
+              and e.time_range.start >= t0)
+    launches = doh_cuda.launches - launches0
+    bench.check_trace(lost_launches(events, t0), doh, launches)
+    return doh, launches, busy / 1e3 / steps, (t1 - t0) / 1e3 / steps
+
+
+def batched_checks(torch, cfg, maps, card):
+    """Phase 13: the batched DoH kernel, then the batched graph against
+    single StepGraphs, the rates of four ways to step the segments, a traced
+    window and the memory; returns (the DoH launches of the batched path,
+    the batched kernel's readings)."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops.cuda import doh_cuda
+    from radarslampy_tpu_torch.ops.grid import warp_polar_to_cartesian
+    from radarslampy_tpu_torch.utils.checkpoint import state_leaves, states_equal
+
+    t0 = time.time()
+    D, T = BATCH_D, PAR_SEG_FRAMES
+    step = T - 1
+    _, frames = render_frames(cfg, 1 + D * step, seed=PAR_SEED)
+    seg = np.stack([frames[k * step:k * step + T] for k in range(D)])
+    # the last segment's last scan is noise, as in phase 12: a coast and a
+    # retrack in one segment while the others track
+    seg[-1, -1] = np.random.default_rng(13).integers(0, 40, seg.shape[2:], dtype=np.uint8)
+    seg = torch.as_tensor(seg, device="cuda")
+    n_frames = D * (T - 1)
+
+    # (a) the batched DoH kernel on the segments' first Cartesian images
+    imgs = torch.stack([warp_polar_to_cartesian(F._dequantize_polar(seg[d, 0]), maps.warp)
+                        for d in range(D)]).contiguous()
+    k = batched_doh(torch, doh_cuda, imgs, maps.doh)
+    log(f"batched (a) doh D={D} S={cfg.cart_size}: one launch {k['one_launch']}, equal to "
+        f"{D} single launches and to vmap's rule bit for bit {k['equal']}; max_abs_err "
+        f"{k['max_abs_err']:.3e} against the twin ({k['worst_share_of_tol']:.3f} of the "
+        f"per-sigma tolerance at worst); kernel {k['device_ms']:.5f} ms on the device (graph "
+        f"replay) against {D} single launches {k['singles_device_ms']:.5f} ms; "
+        f"{k['wrapper_ms']:.5f} ms through the wrapper; twin {k['plain_ms']:.4f} ms; bound "
+        f"{k['bound_ms']:.5f} ms ({k['bound_by']}, {D} x one image's), "
+        f"{k['bound_ms'] / k['device_ms']:.1%} of bound, on {card}")
+    if not (k["equal"] and k["one_launch"]):
+        raise AssertionError("the batched DoH launch differs from single launches")
+
+    # (b) the batched graph against single StepGraphs stepped in turn; the
+    # graphs are captured on the first pass, the counts taken on it
+    singles, single_states, graphs1 = [], [], []
+    for d in range(D):
+        g1 = F.StepGraph(maps, cfg)
+        g1.load(F.init_state(seg[d, 0], np.zeros(3), maps, cfg))
+        singles.append(torch.stack([g1.step(seg[d, t]).clone() for t in range(1, T)]))
+        single_states.append(g1.snapshot())
+        graphs1.append(g1)
+    mem0 = torch.cuda.memory_allocated()
+    doh_cuda.launches = 0
+    s0 = F.batched_init_state(seg[:, 0], torch.zeros(D, 3), maps, cfg)
+    g = F.StepGraph(maps, cfg, batch=D)
+    g.load(s0)
+    rows = torch.stack([g.step(seg[:, t]).clone() for t in range(1, T)])
+    torch.cuda.synchronize()
+    launches = doh_cuda.launches
+    mem_b = torch.cuda.memory_allocated() - mem0
+    state_b = sum(t.nbytes for t in state_leaves(g.state))
+    final = F.unstack_states(g.snapshot())
+    cmp = rows_agree(torch, rows.transpose(0, 1), torch.stack(singles), cfg)
+    states = all(states_equal(a, b) for a, b in zip(final, single_states))
+    init_equal = all(states_equal(a, F.init_state(seg[d, 0], np.zeros(3), maps, cfg))
+                     for d, a in enumerate(F.unstack_states(s0)))
+    kf, rt = rows[..., 6].sum().item(), rows[..., 7].sum().item()
+    coasts = (rows[..., 4] < cfg.min_inliers_accept).sum().item()
+    log(f"batched (b) StepGraph(batch={D}) over {D} segments x {T} frames at SlamConfig(): "
+        f"init equal to {D} init_state bit for bit {init_equal}; every packed row equal to {D} "
+        f"single StepGraphs bit for bit {cmp['equal']}, final states {states}; flags equal "
+        f"{cmp['flags']}, max pose diff {cmp['dxy']:.3e} m, {cmp['dth']:.3e} rad; keyframes "
+        f"{int(kf)}, retracks {int(rt)}, coasts {int(coasts)} of {n_frames} segment frames; "
+        f"doh launches {launches} (the init, the capture's warm-up step, one a replay); "
+        f"batched state {state_b} B, "
+        f"device memory held by the state, the graph and its pool {mem_b} B")
+    if not (cmp["ok"] and init_equal and (states or not cmp["equal"])
+            and launches == 1 + 1 + (T - 1) and rt >= 1 and coasts >= 1):
+        raise AssertionError(f"the batched graph differs from the single graphs: {cmp}, states "
+                             f"{states}, init {init_equal}, launches {launches}, retracks {rt}, "
+                             f"coasts {coasts}")
+
+    # (d) rates over the same frames, each path warm, BATCH_PASSES passes
+    def passes(fn):
+        ms = []
+        for _ in range(BATCH_PASSES):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms), min(ms), max(ms)
+
+    def batched_graph():
+        g.load(s0)
+        for t in range(1, T):
+            g.step(seg[:, t])
+
+    inits = F.unstack_states(s0)
+
+    def single_graphs():
+        for d in range(D):
+            graphs1[d].load(inits[d])
+            for t in range(1, T):
+                graphs1[d].step(seg[d, t])
+
+    def vmapped_eager():
+        s = s0
+        for t in range(1, T):
+            s, _ = F.batched_slam_step(s, seg[:, t], maps, cfg)
+
+    def eager_in_turn():
+        for d in range(D):
+            s = inits[d]
+            for t in range(1, T):
+                s, _ = F.slam_step(s, seg[d, t], maps, cfg)
+
+    rates = {}
+    for name, fn in (("batched_graph", batched_graph), ("single_graphs", single_graphs),
+                     ("vmapped_eager", vmapped_eager), ("eager_in_turn", eager_in_turn)):
+        fn()
+        med, lo, hi = passes(fn)
+        rates[name] = dict(fps=n_frames / (med / 1e3), ms=med, min_ms=lo, max_ms=hi)
+    ev = []
+    for t in range(1, T):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.step(seg[:, t])
+        b.record()
+        b.synchronize()
+        ev.append(a.elapsed_time(b))
+    log("batched (d) frames/s over " + f"{n_frames} segment frames ({BATCH_PASSES} warm passes, "
+        f"median; pass ms min-max) on {card}: " + "; ".join(
+            f"{k_} {v['fps']:.3f} ({v['min_ms']:.1f}-{v['max_ms']:.1f} ms)"
+            for k_, v in rates.items())
+        + f"; batched replay {statistics.median(ev):.3f} ms by CUDA events (median of {T - 1}),"
+        f" {statistics.median(ev) / D:.3f} ms a segment frame")
+
+    # (c) a traced window of batched replays
+    doh_traced, doh_counted, busy, window = batched_trace(torch, F, g, s0, seg,
+                                                          BATCH_TRACE_STEPS)
+    log(f"batched (c) traced window of {BATCH_TRACE_STEPS} replays and a batched init: "
+        f"{doh_traced} DoH kernels traced == {doh_counted} launches counted (one a frame for "
+        f"{D} segments); device busy {busy:.3f} ms a replay ({busy / D:.3f} a segment frame), "
+        f"window {window:.3f} ms, idle share {1 - busy / window:.4f}; phase 13 in "
+        f"{time.time() - t0:.1f} s")
+    if doh_traced != doh_counted or doh_counted != BATCH_TRACE_STEPS + 1 or busy <= 0:
+        raise AssertionError(f"batched trace: {doh_traced} DoH kernels, {doh_counted} launches")
+    k.update(launches=launches, busy_ms=busy, rates=rates, state_bytes=state_b)
+    return launches + doh_counted, k
+
+
 def main() -> int:
     import torch
 
@@ -1994,11 +2273,21 @@ def main() -> int:
     graph_launches, doh_row["graph_device_ms"] = graph_checks(torch, cfg, maps, frames,
                                                               fcfg, turn)
 
+    # 13. the batched step: D segments in one graph, one DoH launch a frame
+    batched_launches, bk13 = batched_checks(torch, cfg, maps, card)
+    doh_row.update(batched_d=BATCH_D, batched_device_ms=bk13["device_ms"],
+                   batched_singles_device_ms=bk13["singles_device_ms"],
+                   batched_wrapper_ms=bk13["wrapper_ms"], batched_plain_ms=bk13["plain_ms"],
+                   batched_bound_ms=bk13["bound_ms"],
+                   batched_bound_share=bk13["bound_ms"] / bk13["device_ms"],
+                   batched_max_abs_err=bk13["max_abs_err"])
+
     by_path = {"step": launches, "driver": driver_launches, "fmt_step": fmt_launches,
                "backend_driver": bk["launches"], "eval": eval_launches,
                "batch_odometry": batch_launches, "png_driver": png_launches,
                "cli": cli_launches, "profile_stages": profile_launches,
-               "bench": bench_launches, "graph": graph_launches}
+               "bench": bench_launches, "graph": graph_launches,
+               "batched_graph": batched_launches}
     doh_row["launches"] = sum(by_path.values())
     doh_row["launches_by_path"] = by_path
     print(card_line(), flush=True)

@@ -97,16 +97,14 @@ def main() -> int:
     def current_abi(path):
         """A launcher of the build of `path`, called as the package's wrapper
         calls csrc/doh.cu."""
-        fn = bind(ctypes.CDLL(str(doh_cuda.build_library(path))),
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-        geom, schedule = doh_cuda._launch_plan(S, filters.radii, img.device)
+        fn = bind(ctypes.CDLL(str(doh_cuda.build_library(path))), doh_cuda.LAUNCH_ARGTYPES)
+        geom, schedule = doh_cuda._launch_plan(S, filters.radii, 1, img.device)
         radii, sig4 = doh_cuda._host_scalars(filters.radii, filters.scales)
 
         def run():
             out = torch.empty((n_sigma, S, S), device="cuda")
             err = fn(img.data_ptr(), filters.taps.data_ptr(), radii, sig4, n_sigma,
-                     tap_stride, S, schedule.data_ptr(), geom.grid, geom.block,
+                     tap_stride, S, 1, S * S, schedule.data_ptr(), geom.grid, geom.block,
                      geom.smem_bytes, out.data_ptr(), stream())
             if err != 0:
                 raise RuntimeError(f"{path}: doh_response_launch failed: cudaError {err}")

@@ -12,16 +12,20 @@
 //   fp32:  1024^2 * sum(2 passes * 2 flop * (2r + 1) + 14) = 459 MFLOP,
 //          6.85 us at the 67 TFLOP/s of the CUDA cores;
 //   bytes: 4 MB image read + 12 MB response written = 16.8 MB, 5.0 us at 3.35 TB/s.
-// So it is bound by fp32 operations.  It stays in fp32 FMAs on the CUDA
-// cores, with no fast-math intrinsic and no tensor core: the determinant
-// subtracts near-equal products scaled by sigma^4 (up to 1e4), which TF32 does
-// not survive, and a 3xTF32 banded product would spend most of each dense tile
-// on the band's zeros.
+// A batch of B images is B times both.  So it is bound by fp32 operations.  It
+// stays in fp32 FMAs on the CUDA cores, with no fast-math intrinsic and no
+// tensor core: the determinant subtracts near-equal products scaled by
+// sigma^4 (up to 1e4), which TF32 does not survive, and a 3xTF32 banded
+// product would spend most of each dense tile on the band's zeros.
 //
-// Design: one launch over all sigma; nothing is written to device memory but
-// the output.
-//   - Work items are (sigma, tile) pairs; a tile is kTW = 128 output columns
-//     by kTH = 30 output rows.  The grid holds as many blocks as the card runs
+// Design: one launch over all sigma (and over a batch of B images: under
+// `torch.func.vmap` the segments of `parallel/batch_odometry.py` share one
+// launch a frame, as the Pallas call's grid gains a batch axis under
+// `jax.vmap`); nothing is written to device memory but the output.
+//   - Work items are (image, sigma, tile) triples; a tile is kTW = 128 output
+//     columns by kTH = 30 output rows.  An image's arithmetic does not depend
+//     on the batch, so a batched launch gives each image the bits of a launch
+//     of its own.  The grid holds as many blocks as the card runs
 //     at once (5 per SM), and each block walks its own list of items, which
 //     the wrapper fills longest first, each item to the block with the least
 //     work so far (`launch_geometry` in ops/cuda/doh_cuda.py).  So the sigma =
@@ -94,6 +98,7 @@ struct DohParams {
   int n_sigma;
   int tap_stride;
   int S;
+  long long img_stride;  // floats from one image of the batch to the next
   int nkb_max;  // tap blocks of the largest radius
   int vs;       // row stride of the vertical blur
   int radius[kMaxSigma];
@@ -158,8 +163,9 @@ doh_kernel(const float* __restrict__ img, const float* __restrict__ taps, const 
   const int n_strips = (S + kTW - 1) / kTW;
   const int n_tiles = n_strips * ((S + kTH - 1) / kTH);
 
-  // This block's work items, (sigma, tile) = (item / n_tiles, item % n_tiles),
-  // are schedule[gridDim.x + 1 + n] for n in [schedule[b], schedule[b + 1]).
+  // This block's work items are schedule[gridDim.x + 1 + n] for n in
+  // [schedule[b], schedule[b + 1]): item = plane * n_tiles + tile, where
+  // plane = image * n_sigma + sigma is the item's [S, S] plane of the output.
   const int* items = schedule + gridDim.x + 1;
   const int tstride = kR * p.nkb_max;       // taps of one sigma in shared memory
   float* w_all = smem;                      // [n_sigma][tstride], zero padded
@@ -178,11 +184,13 @@ doh_kernel(const float* __restrict__ img, const float* __restrict__ taps, const 
   for (int n = schedule[blockIdx.x]; n < schedule[blockIdx.x + 1]; ++n) {
     const int item = items[n];
     const int tile = item % n_tiles;
+    const int plane = item / n_tiles;
+    const float* img_b = img + (size_t)(plane / p.n_sigma) * p.img_stride;
     const int x0 = (tile % n_strips) * kTW;
     const int y0 = (tile / n_strips) * kTH;
     // sigma's radius and scale (unrolled over kMaxSigma: constant indices keep p
     // in the constant bank)
-    const int s = item / n_tiles;
+    const int s = plane % p.n_sigma;
     int r = 0;
     float s4 = 0.0f;
 #pragma unroll
@@ -212,7 +220,7 @@ doh_kernel(const float* __restrict__ img, const float* __restrict__ taps, const 
       const int gx = x0 - 1 - r + 32 * cg + lane;
       const bool col_in = gx >= 0 && gx < S;
       const int gy_top = y0 - 1 - r + kRV * rg;
-      const float* base = img + min(max(gx, 0), S - 1);  // a column outside: any finite data
+      const float* base = img_b + min(max(gx, 0), S - 1);  // a column outside: any finite data
       float acc[kRV];
       if (gy_top >= 0 && gy_top + kR * nkb + kRV <= S) {
         const float* col = base + (size_t)gy_top * S;
@@ -271,7 +279,7 @@ doh_kernel(const float* __restrict__ img, const float* __restrict__ taps, const 
     const int rows_out = min(kTH, S - y0);
     const int cols_out = min(kTW, S - x0);
     const bool vec = (S & 3) == 0;
-    float* out_s = out + (size_t)s * S * S;
+    float* out_s = out + (size_t)plane * S * S;
     for (int i = tid; i < rows_out * (kTW / 4); i += kThreads) {
       const int ty = i / (kTW / 4), qx = 4 * (i % (kTW / 4));
       if (qx >= cols_out) continue;
@@ -353,21 +361,25 @@ extern "C" int doh_kernel_info(int smem_bytes, int* out3) {
   return 0;
 }
 
-// img [S, S] f32 (device); taps [n_sigma, tap_stride] f32 (device; row s holds
+// img [batch, S, S] f32 (device; image b at img + b * img_stride, its rows
+// contiguous); taps [n_sigma, tap_stride] f32 (device; row s holds
 // 2 radius[s] + 1 taps centred at index radius[s], tap_stride >= 2 max(radius) + 1);
-// radius [n_sigma] i32 and sig4 [n_sigma] f32 (host); out [n_sigma, S, S] f32
-// (device); schedule [grid + 1 + n_items] i32 (device): the wrapper's
-// `launch_geometry(S, radii, n_sm)`, whose block and smem_bytes must be this
-// file's or the call is refused.
+// radius [n_sigma] i32 and sig4 [n_sigma] f32 (host); out [batch, n_sigma, S, S]
+// f32 (device, contiguous); schedule [grid + 1 + n_items] i32 (device): the
+// wrapper's `launch_geometry(S, radii, n_sm, batch)`, whose block and smem_bytes
+// must be this file's or the call is refused.
 extern "C" int doh_response_launch(const void* img, const void* taps, const int* radius,
                                    const float* sig4, int n_sigma, int tap_stride, int S,
-                                   const void* schedule, int grid, int block,
-                                   int smem_bytes, void* out, void* stream) {
-  if (n_sigma < 1 || n_sigma > kMaxSigma) return (int)cudaErrorInvalidValue;
+                                   int batch, long long img_stride, const void* schedule,
+                                   int grid, int block, int smem_bytes, void* out,
+                                   void* stream) {
+  if (n_sigma < 1 || n_sigma > kMaxSigma || batch < 1 || img_stride < (long long)S * S)
+    return (int)cudaErrorInvalidValue;
   DohParams p;
   p.n_sigma = n_sigma;
   p.tap_stride = tap_stride;
   p.S = S;
+  p.img_stride = img_stride;
   int rmax = 0;
   for (int i = 0; i < kMaxSigma; ++i) {
     p.radius[i] = i < n_sigma ? radius[i] : 0;

@@ -91,7 +91,7 @@ def map_state_from_numpy(m, device="cuda") -> MapState:
     dev = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     frame_ids = m.frame_ids if m.frame_ids is not None else \
-        np.full((np.shape(m.poses)[0],), -1, np.int32)
+        np.full(np.shape(m.poses)[:-1], -1, np.int32)
     return MapState(
         poses=_tensor(m.poses, dev, f32),
         feat_world=_tensor(m.feat_world, dev, f32),
@@ -108,7 +108,8 @@ def map_state_from_numpy(m, device="cuda") -> MapState:
 
 
 def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
-    """The JAX `SlamState` (with its `MapState`) as the port's `SlamState`."""
+    """The JAX `SlamState` (with its `MapState`) as the port's `SlamState`;
+    a batched one (leading axis D on every leaf) as the port's batched state."""
     dev = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     new_map = map_state_from_numpy(state.map, dev)
@@ -128,21 +129,14 @@ def slam_state_from_numpy(state, cfg: SlamConfig, device="cuda") -> SlamState:
     )
 
 
-def _take(tree, d):
-    """Entry d of every array of a (nested) NamedTuple of batched arrays."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple):
-        return type(tree)(*(_take(x, d) for x in tree))
-    return np.asarray(tree)[d]
-
-
-def slam_states_from_numpy(states, cfg: SlamConfig, device="cuda") -> list:
+def slam_states_from_numpy(states, cfg: SlamConfig, device="cuda") -> SlamState:
     """The JAX package's batched `SlamState` (a leading segment axis D, as
-    `parallel.batch_odometry.batched_init` gives it) as a list of D port
-    `SlamState`s, as the port's `batched_init` gives them."""
-    return [slam_state_from_numpy(_take(states, d), cfg, device)
-            for d in range(np.shape(states.pose)[0])]
+    `parallel.batch_odometry.batched_init` gives it) as the port's batched
+    state, as the port's `batched_init` gives it.  `frontend.unstack_states`
+    splits it into D single states."""
+    if np.ndim(states.pose) != 2:
+        raise ValueError(f"a batched state has poses [D, 3], got {np.shape(states.pose)}")
+    return slam_state_from_numpy(states, cfg, device)
 
 
 def pose_graph_from_numpy(g, device="cuda") -> PoseGraph:

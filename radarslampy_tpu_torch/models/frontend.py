@@ -1,5 +1,7 @@
 """The per-frame SLAM step on tensors: init_state, slam_step, slam_step_chunk,
-and StepGraph, the step captured as one CUDA graph.
+StepGraph, the step captured as one CUDA graph, and the batched step of D
+segments in lock-step (`batched_init_state`, `batched_slam_step`,
+`StepGraph(..., batch=D)`).
 
 Counterpart of `radarslampy_tpu/models/frontend.py`.  One radar frame goes
 through
@@ -33,6 +35,12 @@ filter taps are made once per device).  Differences in form, not in result:
     one dispatch.  On the CPU both run the eager step.  A graph holds the
     state it advances, so each caller owns its own (a driver, a harness run,
     a bench trial); nothing shares one across callers.
+  * The batched step is `slam_step` under `torch.func.vmap` over a leading
+    segment axis on every leaf of the state (`stack_states`), the
+    counterpart of `parallel/batch_odometry.py`'s `vmap(slam_step)`: every
+    op has a batching rule (vmap's per-op loop is never taken; the DoH op's
+    rule makes one launch for all D), and each segment gets the bits of its
+    own `slam_step` on the CPU.
 
 Each stage of the eager step runs inside a `torch.profiler.record_function`
 range named "slam_step.<stage>" (the whole step: "slam_step"), so a profiler
@@ -207,7 +215,10 @@ def _write_keyframe(m: MapState, make_kf, pose, feat_world, feat_local, feat_ids
     def upd(buf, row):
         old = buf.index_select(0, c)
         new = torch.where(make_kf, row.to(buf.dtype).reshape(old.shape), old)
-        return buf.index_copy_(0, c, new) if in_place else buf.index_copy(0, c, new)
+        # index_put_, not index_copy_: under vmap (the batched graph) it writes
+        # each segment's row at its own cursor in one op, where index_copy_
+        # has no batching rule and steps the segments one by one
+        return buf.index_put_((c,), new) if in_place else buf.index_copy(0, c, new)
 
     cursor = torch.clamp(m.cursor + make_kf.to(torch.int32), max=M).to(torch.int32)
     if in_place:
@@ -406,16 +417,16 @@ PACKED_WIDTH = 13   # see pack_output
 
 
 def pack_output(out: StepOutput) -> torch.Tensor:
-    """A StepOutput as one float row [13]: [x, y, theta, n_tracked,
-    n_inliers, fit_ok, is_keyframe, did_retrack] (the JAX driver's per-frame
-    row), then [vx, vy, omega, fmt_rotation, fmt_scale].  Counts and flags
-    are exact in float32, so `unpack_output` gives the output back bit for
-    bit."""
+    """A StepOutput as one float row [13] (rows [..., 13] of a batched
+    output): [x, y, theta, n_tracked, n_inliers, fit_ok, is_keyframe,
+    did_retrack] (the JAX driver's per-frame row), then [vx, vy, omega,
+    fmt_rotation, fmt_scale].  Counts and flags are exact in float32, so
+    `unpack_output` gives the output back bit for bit."""
     f = out.pose.dtype
     return torch.cat([out.pose, torch.stack([
         out.n_tracked.to(f), out.n_inliers.to(f), out.fit_ok.to(f),
-        out.is_keyframe.to(f), out.did_retrack.to(f)]), out.velocity,
-        torch.stack([out.fmt_rotation.to(f), out.fmt_scale.to(f)])])
+        out.is_keyframe.to(f), out.did_retrack.to(f)], dim=-1), out.velocity,
+        torch.stack([out.fmt_rotation.to(f), out.fmt_scale.to(f)], dim=-1)], dim=-1)
 
 
 def unpack_output(packed: torch.Tensor) -> StepOutput:
@@ -432,9 +443,14 @@ def _leaves(state: SlamState):
     return [t for x in state for t in (x if isinstance(x, MapState) else (x,))]
 
 
+def _map_leaves(fn, *states):
+    """A SlamState (with its MapState) of fn applied to the matching leaves."""
+    return SlamState(*(MapState(*map(fn, *xs)) if isinstance(xs[0], MapState) else fn(*xs)
+                       for xs in zip(*states)))
+
+
 def clone_state(state: SlamState) -> SlamState:
-    return SlamState(*(MapState(*(t.clone() for t in x)) if isinstance(x, MapState)
-                       else x.clone() for x in state))
+    return _map_leaves(torch.clone, state)
 
 
 def _advance(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig, packed):
@@ -450,9 +466,54 @@ def _advance(state: SlamState, polar, maps: FrameMaps, cfg: SlamConfig, packed):
     packed.copy_(pack_output(out))
 
 
+# ---- D segments in lock-step: the step under torch.func.vmap ----
+
+def stack_states(states) -> SlamState:
+    """D states -> one state with a leading segment axis D on every leaf
+    (the layout of the JAX package's vmapped state)."""
+    return _map_leaves(lambda *ts: torch.stack(ts), *states)
+
+
+def unstack_states(state: SlamState) -> list:
+    """A state with a leading segment axis -> its D states (views)."""
+    return [_map_leaves(lambda t: t[d], state) for d in range(state.pose.shape[0])]
+
+
+def batched_init_state(polars0, init_poses, maps: FrameMaps, cfg: SlamConfig) -> SlamState:
+    """First frames [D, A, W] at poses [D, 3] -> the D first states stacked:
+    `init_state` under `torch.func.vmap` (one DoH launch for all D)."""
+    dev = maps.warp.idx0.device
+    polars0 = torch.as_tensor(polars0, device=dev)
+    init_poses = torch.as_tensor(init_poses, dtype=torch.float32, device=dev)
+    return torch.func.vmap(lambda p, q: init_state(p, q, maps, cfg))(polars0, init_poses)
+
+
+def batched_slam_step(states: SlamState, polars, maps: FrameMaps, cfg: SlamConfig):
+    """D frames [D, A, W] through the step of D segments at once -> (states,
+    StepOutput with fields [D, ...]): `slam_step` under `torch.func.vmap`,
+    the counterpart of the JAX package's vmapped step.  Every segment gets
+    the bits of its own `slam_step`; DoH launches once for all D."""
+    polars = torch.as_tensor(polars, device=states.pose.device)
+    return torch.func.vmap(lambda s, p: _slam_step(s, p, maps, cfg))(states, polars)
+
+
+def _advance_batched(states: SlamState, polars, maps: FrameMaps, cfg: SlamConfig, packed):
+    """`_advance` of D segments under vmap: each segment's next state into its
+    slice of `states`, its map row written at its own cursor, its packed row
+    into `packed` [D, 13]."""
+    def one(s, p, o):
+        _advance(s, p, maps, cfg, o)
+        return o
+    torch.func.vmap(one)(states, polars, packed)
+
+
 class StepGraph:
     """The step as one CUDA graph: the port's counterpart of the JAX
-    driver's `jax.jit(slam_step, donate_argnums=(0,))`.
+    driver's `jax.jit(slam_step, donate_argnums=(0,))`, and with `batch=D`
+    of `parallel/batch_odometry.py`'s `jax.jit(vmap(slam_step),
+    donate_argnums=(0,))`: D segments in lock-step, their state stacked on a
+    leading axis (`stack_states`), scans [D, A, W] in, rows [D, 13] out,
+    one graph replay and one DoH launch a frame for all D.
 
     On the card, the first `step` for an input dtype and shape (u8 or
     float32 scans) runs one step eagerly on a side stream, on a clone of the
@@ -475,11 +536,13 @@ class StepGraph:
     `snapshot()`, `packed.clone()`.  One StepGraph serves one caller: a
     second caller that loads its state into it takes the first one's place.
 
-    On the CPU the same calls run `slam_step` (functional, so nothing needs
-    copying); the caller asked for the CPU, so this is not a fallback."""
+    On the CPU the same calls run `slam_step` (with `batch`,
+    `batched_slam_step`; functional, so nothing needs copying); the caller
+    asked for the CPU, so this is not a fallback."""
 
-    def __init__(self, maps: FrameMaps, cfg: SlamConfig):
-        self.maps, self.cfg = maps, cfg
+    def __init__(self, maps: FrameMaps, cfg: SlamConfig, batch: Optional[int] = None):
+        self.maps, self.cfg, self.batch = maps, cfg, batch
+        self._lead = () if batch is None else (batch,)
         self.device = maps.warp.idx0.device
         self.on_card = self.device.type == "cuda"
         self.state: Optional[SlamState] = None
@@ -489,12 +552,15 @@ class StepGraph:
         self._tables = []   # the device tables the captures read
 
     def load(self, state: SlamState) -> None:
+        if tuple(state.pose.shape[:-1]) != self._lead:
+            raise ValueError(f"a state of pose shape {tuple(state.pose.shape)} for a graph "
+                             f"of batch {self.batch}")
         if not self.on_card:
             self.state = state
             return
         if self.state is None:
             self.state = clone_state(state)
-            self.packed = torch.zeros(PACKED_WIDTH, dtype=state.pose.dtype,
+            self.packed = torch.zeros((*self._lead, PACKED_WIDTH), dtype=state.pose.dtype,
                                       device=self.device)
             return
         for dst, src in zip(_leaves(self.state), _leaves(state), strict=True):
@@ -504,14 +570,16 @@ class StepGraph:
             dst.copy_(src)
 
     def step(self, scan) -> torch.Tensor:
-        """One frame: the packed output row [13] (see the class docstring).
-        Runs inside one `record_function` range, "step_graph.step": on the
-        card the input's staging copy and the replay."""
+        """One frame: the packed output row [13] (rows [D, 13] with `batch`;
+        see the class docstring).  Runs inside one `record_function` range,
+        "step_graph.step": on the card the input's staging copy and the
+        replay."""
         if self.state is None:
             raise RuntimeError("StepGraph.step before load(state)")
         with record_function("step_graph.step"):
             if not self.on_card:
-                self.state, out = slam_step(self.state, scan, self.maps, self.cfg)
+                step = slam_step if self.batch is None else batched_slam_step
+                self.state, out = step(self.state, scan, self.maps, self.cfg)
                 self.packed = pack_output(out)
                 return self.packed
             scan = torch.as_tensor(scan, device=self.device)
@@ -536,18 +604,21 @@ class StepGraph:
     def _capture(self, scan):
         if self.state is None:
             raise RuntimeError("StepGraph capture before load(state)")
+        if tuple(scan.shape[:-2]) != self._lead:
+            raise ValueError(f"scans {tuple(scan.shape)} for a graph of batch {self.batch}")
+        advance = _advance if self.batch is None else _advance_batched
         static = scan.clone()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            _advance(clone_state(self.state), static, self.maps, self.cfg,
-                     torch.empty_like(self.packed))
+            advance(clone_state(self.state), static, self.maps, self.cfg,
+                    torch.empty_like(self.packed))
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = doh_cuda.launches
         try:
             with kept_by(self._tables), torch.cuda.graph(graph, pool=self._pool):
-                _advance(self.state, static, self.maps, self.cfg, self.packed)
+                advance(self.state, static, self.maps, self.cfg, self.packed)
         finally:
             launches = doh_cuda.launches - before
             doh_cuda.launches = before

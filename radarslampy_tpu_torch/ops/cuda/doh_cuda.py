@@ -7,6 +7,13 @@ kernel `radarslampy_tpu/ops/pallas/doh_pallas.py::_kernel` and of its XLA twin
 (which says what bounds it on an H100); a CPU tensor goes to the plain twin
 `doh_response_reference`.  There is no fallback from one to the other.
 
+`doh_response` is the custom op `radarslampy::doh_response` (tensors in,
+[..., n_sigma, S, S] out), so that `torch.func.vmap` reaches it: its batching
+rule makes one launch over the whole batch on the card (the counterpart of the
+Pallas call's grid gaining a batch axis under `jax.vmap`), and runs the twin
+image by image on the CPU.  A batched launch gives every image the bits of a
+launch of its own.
+
 The twin is the separable `conv2d` form (horizontal, then vertical, zero
 padding), with TF32 off for cuDNN (set on package import).  It is the same
 algorithm as the kernel, so the kernel is held against a twin whose only
@@ -19,7 +26,7 @@ C interface (no PyTorch header), loaded with ctypes.  That takes seconds, where
 PyTorch's headers, and it needs no `ninja`.  The library goes to
 `radarslampy_tpu_torch/_build/`, named by the source's hash, at first use.
 The launch geometry (grid, block, shared bytes and each block's list of
-(sigma, tile) work items) is computed here, in `launch_geometry`, where the CPU
+(image, sigma, tile) work items) is computed here, in `launch_geometry`, where the CPU
 tests reach it; the entry point refuses a block size or shared-memory size
 that differs from its own.
 """
@@ -35,7 +42,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -50,7 +57,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-shared", "-Xptxas=-v"]
 
-launches = 0        # kernel launches through `doh_response` (CUDA tensors only)
+launches = 0        # kernel launches (CUDA tensors only; a batched launch counts once)
 build_log = ""      # nvcc's output of the build this process did, if any
 _lib = None
 
@@ -140,14 +147,16 @@ SM_SHARED = 233_472  # bytes of shared memory an H100 SM has for its blocks
 
 class DohGeometry(NamedTuple):
     """Launch geometry of `csrc/doh.cu`: `grid` blocks (as many as the card
-    holds at once), each walking its own list of (sigma, tile) work items."""
+    holds at once), each walking its own list of (image, sigma, tile) work
+    items."""
 
     grid: int          # blocks: SMs x blocks per SM (or fewer, one per item)
     block: int         # threads per block
     smem_bytes: int    # dynamic shared memory per block, sized for the largest radius
     n_strips: int      # column strips of TILE_W
     n_bands: int       # row bands of TILE_H
-    slots: tuple       # per block, its items sigma * n_strips * n_bands + tile
+    slots: tuple       # per block, its items plane * n_strips * n_bands + tile, where
+                       # plane = image * n_sigma + sigma (the item's output plane)
 
 
 def tap_blocks(radius: int) -> int:
@@ -194,15 +203,16 @@ def item_cost(radius: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def launch_geometry(S: int, radii: tuple, n_sm: int) -> DohGeometry:
+def launch_geometry(S: int, radii: tuple, n_sm: int, batch: int = 1) -> DohGeometry:
     """Grid, block, shared memory and per-block work lists of one launch over
-    all sigma on a card of `n_sm` SMs.  The (sigma, tile) items go to blocks
-    longest first, each to the block with the least work so far, so no block
-    ends far after the others.  Raises ValueError, before any launch, for a
-    radius whose block does not fit in shared memory."""
-    if S < 1 or n_sm < 1 or not 1 <= len(radii) <= MAX_SIGMA:
-        raise ValueError(f"bad DoH launch: S={S}, radii={radii}, n_sm={n_sm} "
-                         f"(1 to {MAX_SIGMA} sigmas)")
+    all sigma of `batch` images on a card of `n_sm` SMs.  The (image, sigma,
+    tile) items go to blocks longest first (ties in item order), each to the
+    block with the least work so far, so no block ends far after the others.
+    Raises ValueError, before any launch, for a radius whose block does not
+    fit in shared memory."""
+    if S < 1 or n_sm < 1 or batch < 1 or not 1 <= len(radii) <= MAX_SIGMA:
+        raise ValueError(f"bad DoH launch: S={S}, radii={radii}, n_sm={n_sm}, "
+                         f"batch={batch} (1 to {MAX_SIGMA} sigmas)")
     rmax, n_sigma = max(radii), len(radii)
     smem = smem_bytes(rmax, n_sigma)
     if min(radii) < 0 or smem > SMEM_LIMIT:
@@ -212,8 +222,9 @@ def launch_geometry(S: int, radii: tuple, n_sm: int) -> DohGeometry:
     per_sm = min(BLOCKS_PER_SM, SM_SHARED // (smem + 1024))
     n_strips, n_bands = -(-S // TILE_W), -(-S // TILE_H)
     tiles = n_strips * n_bands
-    items = sorted(((item_cost(r), s * tiles + t) for s, r in enumerate(radii)
-                    for t in range(tiles)), key=lambda c: (-c[0], c[1]))
+    items = sorted(((item_cost(r), (d * n_sigma + s) * tiles + t) for d in range(batch)
+                    for s, r in enumerate(radii) for t in range(tiles)),
+                   key=lambda c: (-c[0], c[1]))
     grid = min(n_sm * per_sm, len(items))
     heap = [(0, b) for b in range(grid)]
     slots = [[] for _ in range(grid)]
@@ -233,10 +244,11 @@ def schedule_array(geom: DohGeometry) -> np.ndarray:
     return np.asarray(np.concatenate([offsets, items]), np.int32)
 
 
-def work_items(S: int, radii: tuple, n_sm: int):
-    """(block, sigma, y0, x0, rows, cols) of each item in schedule order, as
-    the kernel decodes it: the output pixels that item writes."""
-    g = launch_geometry(S, radii, n_sm)
+def work_items(S: int, radii: tuple, n_sm: int, batch: int = 1):
+    """(block, plane, y0, x0, rows, cols) of each item in schedule order, as
+    the kernel decodes it: the output pixels that item writes, in plane
+    image * n_sigma + sigma of the [batch * n_sigma, S, S] output."""
+    g = launch_geometry(S, radii, n_sm, batch)
     tiles = g.n_strips * g.n_bands
     for b, sl in enumerate(g.slots):
         for item in sl:
@@ -258,14 +270,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 
 
-def doh_bound_ms(S: int, radii: tuple):
-    """Least time for the DoH function on an H100 -> (ms, "bytes" or
-    "operations"): each input byte read once, each output byte written once;
-    separable blur (2 passes, 2 flop per tap) plus the 14-flop Hessian
-    stencil per pixel and sigma."""
+def doh_bound_ms(S: int, radii: tuple, batch: int = 1):
+    """Least time for the DoH function of `batch` images on an H100 -> (ms,
+    "bytes" or "operations"): each input byte read once, each output byte
+    written once; separable blur (2 passes, 2 flop per tap) plus the 14-flop
+    Hessian stencil per pixel and sigma."""
     n = len(radii)
-    bytes_moved = 4 * S * S + 4 * n * S * S + 4 * sum(2 * r + 1 for r in radii)
-    flops = S * S * sum(2 * 2 * (2 * r + 1) + 14 for r in radii)
+    bytes_moved = batch * (4 * S * S + 4 * n * S * S) + 4 * sum(2 * r + 1 for r in radii)
+    flops = batch * S * S * sum(2 * 2 * (2 * r + 1) + 14 for r in radii)
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -299,14 +311,19 @@ def build_library(source: Path = SOURCE) -> Path:
     return lib_path
 
 
+# doh_response_launch(img, taps, radius, sig4, n_sigma, tap_stride, S, batch,
+# img_stride, schedule, grid, block, smem_bytes, out, stream)
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+
+
 def load_library():
     """Build (if needed) and load the kernel library; returns the ctypes CDLL."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         fn = lib.doh_response_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        fn.argtypes = LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
         lib.doh_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
         lib.doh_kernel_info.restype = ctypes.c_int
@@ -327,10 +344,11 @@ def kernel_info(radius: int, n_sigma: int = 1) -> dict:
 
 
 @device_table(maxsize=64)
-def _launch_plan(S: int, radii: tuple, device: torch.device):
-    """The launch geometry for the card `device` and its schedule there."""
+def _launch_plan(S: int, radii: tuple, batch: int, device: torch.device):
+    """The launch geometry of `batch` images for the card `device` and its
+    schedule there."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    geom = launch_geometry(S, radii, n_sm)
+    geom = launch_geometry(S, radii, n_sm, batch)
     return geom, torch.as_tensor(schedule_array(geom), device=device)
 
 
@@ -342,27 +360,31 @@ def _host_scalars(radii: tuple, scales: tuple):
 
 
 def doh_response_cuda(img, filters: DohFilters):
-    """Launch the CUDA kernel on the current stream; no synchronisation.
-    The filters were checked when `filters_from_taps` built them."""
+    """Launch the CUDA kernel on the current stream, once for every image of
+    `img` [..., S, S] -> [..., n_sigma, S, S]; no synchronisation.  The
+    filters were checked when `filters_from_taps` built them."""
     global launches
     if not img.is_cuda:
         raise ValueError("doh_response_cuda needs a CUDA tensor")
-    if img.dtype != torch.float32 or img.dim() != 2 or img.shape[0] != img.shape[1]:
-        raise ValueError(f"expected a square float32 image, got {img.dtype} "
+    if (img.dtype != torch.float32 or img.dim() < 2 or img.shape[-1] != img.shape[-2]
+            or img.numel() == 0):
+        raise ValueError(f"expected square float32 images [..., S, S], got {img.dtype} "
                          f"{tuple(img.shape)}")
     if not img.is_contiguous():
         raise ValueError("image must be contiguous")
     if filters.taps.device != img.device:
         raise ValueError(f"filters are on {filters.taps.device}, the image on {img.device}")
-    S = img.shape[0]
-    geom, schedule = _launch_plan(S, filters.radii, img.device)
+    S = img.shape[-1]
+    batch = img.numel() // (S * S)
+    geom, schedule = _launch_plan(S, filters.radii, batch, img.device)
     radii, sig4 = _host_scalars(filters.radii, filters.scales)
     lib = load_library()
     n_sigma, tap_stride = filters.taps.shape
-    out = torch.empty((n_sigma, S, S), dtype=torch.float32, device=img.device)
+    out = torch.empty((*img.shape[:-2], n_sigma, S, S), dtype=torch.float32,
+                      device=img.device)
     err = lib.doh_response_launch(
-        img.data_ptr(), filters.taps.data_ptr(), radii, sig4, n_sigma, tap_stride, S,
-        schedule.data_ptr(), geom.grid, geom.block, geom.smem_bytes, out.data_ptr(),
+        img.data_ptr(), filters.taps.data_ptr(), radii, sig4, n_sigma, tap_stride, S, batch,
+        S * S, schedule.data_ptr(), geom.grid, geom.block, geom.smem_bytes, out.data_ptr(),
         torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"doh_response_launch failed: cudaError {err}")
@@ -370,11 +392,42 @@ def doh_response_cuda(img, filters: DohFilters):
     return out
 
 
-def doh_response(img, filters: DohFilters):
-    """[n_sigma, S, S] DoH responses: the CUDA kernel for a CUDA tensor, the
-    plain twin for a CPU tensor."""
+def _reference_images(img, filters: DohFilters):
+    """The twin over every image of `img` [..., S, S], one at a time."""
+    S = img.shape[-1]
+    flat = img.reshape(-1, S, S)
+    out = torch.stack([doh_response_reference(x, filters) for x in flat])
+    return out.reshape(*img.shape[:-2], *out.shape[1:])
+
+
+@torch.library.custom_op("radarslampy::doh_response", mutates_args=())
+def _doh_op(img: torch.Tensor, taps: torch.Tensor, radii: Sequence[int],
+            scales: Sequence[float]) -> torch.Tensor:
+    filters = DohFilters(taps=taps, radii=tuple(radii), scales=tuple(scales))
     if img.is_cuda:
         return doh_response_cuda(img, filters)
-    if img.device.type == "cpu":
-        return doh_response_reference(img, filters)
-    raise ValueError(f"no DoH path for device {img.device}")
+    return _reference_images(img, filters)
+
+
+@_doh_op.register_fake
+def _doh_op_fake(img, taps, radii, scales):
+    return img.new_empty((*img.shape[:-2], len(radii), img.shape[-2], img.shape[-1]))
+
+
+@_doh_op.register_vmap
+def _doh_op_vmap(info, in_dims, img, taps, radii, scales):
+    """One call over the batch: the images' axis of this vmap level first."""
+    img_dim, taps_dim = in_dims[0], in_dims[1]
+    if img_dim is None or taps_dim is not None:
+        raise ValueError("vmap of the DoH op batches the image, never the filters")
+    return _doh_op(img.movedim(img_dim, 0).contiguous(), taps, radii, scales), 0
+
+
+def doh_response(img, filters: DohFilters):
+    """[..., n_sigma, S, S] DoH responses of images [..., S, S]: the CUDA
+    kernel for a CUDA tensor (one launch), the plain twin for a CPU tensor.
+    Under `torch.func.vmap` the batch goes to the op's batching rule.  Any
+    other device raises (the op's fake kernel would answer a meta tensor)."""
+    if img.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no DoH path for device {img.device}")
+    return _doh_op(img, filters.taps, filters.radii, filters.scales)

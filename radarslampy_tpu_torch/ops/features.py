@@ -167,9 +167,12 @@ def merge_features(coords, mask, new_cands: Candidates, min_dist_px: float = 4.0
     take = torch.clamp(ar, max=cand_xy.shape[0] - 1)
     fill_ok = cand_ok[take] & (ar < n_fill)
 
+    # the outputs are made like the values written into them, so that under
+    # vmap (batched candidates, unbatched empty slots) they are batched too
     tgt = torch.where(fill_ok[:, None], cand_xy[take], coords[slot_order])
-    out_coords = torch.empty_like(coords)
+    out_coords = torch.empty_like(tgt)
     out_coords[slot_order] = tgt
-    out_mask = torch.empty_like(mask)
-    out_mask[slot_order] = mask[slot_order] | fill_ok
+    tgt_mask = mask[slot_order] | fill_ok
+    out_mask = torch.empty_like(tgt_mask)
+    out_mask[slot_order] = tgt_mask
     return out_coords, out_mask

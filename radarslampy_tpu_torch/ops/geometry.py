@@ -12,8 +12,11 @@ have.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
+
+from radarslampy_tpu_torch.ops.segments import per_segment
 
 
 def wrap_angle(theta):
@@ -96,8 +99,13 @@ def transform_points(T, pts):
     return pts @ T[:2, :2].T + T[:2, 2]
 
 
-def procrustes_masked(src, tgt, weights):
-    """Weighted closed-form 2-D rigid registration.
+@per_segment("procrustes_masked",
+             lambda src, tgt, weights: (src.new_empty((2, 2)), src.new_empty(2),
+                                        torch.empty((), dtype=torch.bool, device=src.device)))
+def procrustes_masked(src: torch.Tensor, tgt: torch.Tensor,
+                      weights: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted closed-form 2-D rigid registration.  An op of
+    `ops/segments.py`: under vmap each segment is fitted on its own.
 
     Minimises sum_i w_i || R tgt_i + h - src_i ||^2 over (R, h); the optimal
     angle is atan2(sum w (a x b), sum w (a . b)) of the centred sets.

@@ -11,6 +11,13 @@ is written out analytically (`_jacobian`), since on the card a
 `tests/test_torch_motion.py` holds it against both `torch.func.jacfwd` and
 `jax.jacfwd`.  LM runs `mds_iterations` steps with the same accept/damping
 schedule and a Cholesky solve of the 6x6 system.
+
+The 6x6 normal equations (`lm_delta`) and the cost (`sum_squares`) are ops
+of `ops/segments.py`: under vmap (the batched step's D segments) each
+segment's system is solved and its cost summed on its own, with the calls of
+the single step, so each segment keeps its own step's bits (a batched
+product, solve or sum takes other kernels; MAGMA's batched solve cannot be
+captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.ops import geometry as geo
+from radarslampy_tpu_torch.ops.segments import per_segment
 from radarslampy_tpu_torch.ops.tables import device_table
 
 
@@ -118,6 +126,24 @@ def _jacobian(params, pose_prev, p_w, p_jt, times, mask, n_valid, info_p, info_v
     return torch.cat([j_p, j_v])
 
 
+@per_segment("lm_delta", lambda J, r, lam: J.new_empty(J.shape[-1:]))
+def lm_delta(J: torch.Tensor, r: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """The LM step of one system, J [N, 6], r [N], damping lam []:
+    -(JtJ + lam diag(JtJ + 1e-12))^-1 Jt r by a Cholesky solve -> [6]."""
+    J, r = J.contiguous(), r.contiguous()
+    JtJ = J.T @ J
+    Jtr = J.T @ r
+    A = JtJ + lam * torch.diag(torch.diagonal(JtJ) + 1e-12)
+    L, _ = torch.linalg.cholesky_ex(A)
+    return -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
+
+
+@per_segment("sum_squares", lambda r: r.new_empty(()))
+def sum_squares(r: torch.Tensor) -> torch.Tensor:
+    """sum(r * r) of one segment's residuals."""
+    return torch.sum(r * r)
+
+
 @device_table(maxsize=32)
 def _information(sigma, dtype, device):
     """1 / sqrt(sigma) (a number or a tuple), made once per dtype and device:
@@ -142,8 +168,7 @@ def solve_motion(pose_prev, p_w, p_jt, pose_init, mask, cfg: SlamConfig) -> Moti
     fixed = (pose_prev, p_w, p_jt, times, mask, n_valid, info_p, info_v, period)
 
     def cost_of(p):
-        r = _residuals(p, *fixed)
-        return torch.sum(r * r)
+        return sum_squares(_residuals(p, *fixed))
 
     p = torch.cat([relative_velocity(pose_prev, pose_init, period), pose_init])
     p0 = p
@@ -152,12 +177,7 @@ def solve_motion(pose_prev, p_w, p_jt, pose_init, mask, cfg: SlamConfig) -> Moti
     for _ in range(cfg.mds_iterations):
         r = _residuals(p, *fixed)
         J = _jacobian(p, *fixed)  # [2K + 3, 6]
-        JtJ = J.T @ J
-        Jtr = J.T @ r
-        A = JtJ + lam * torch.diag(torch.diagonal(JtJ) + 1e-12)
-        L, _ = torch.linalg.cholesky_ex(A)
-        delta = -torch.cholesky_solve(Jtr[:, None], L)[:, 0]
-        p_new = p + delta
+        p_new = p + lm_delta(J, r, lam)
         new_cost = cost_of(p_new)
         accept = new_cost < cost
         p = torch.where(accept, p_new, p)

@@ -3,16 +3,19 @@
 Counterpart of `radarslampy_tpu/parallel/batch_odometry.py`.  The SLAM chain
 is serial per trajectory, but a long recording splits into segments: the D
 segments are split over the mesh's ``kf`` ranks in contiguous blocks, every
-rank advances its segments one frame at a time in lock-step, one port
-`slam_step` per segment per frame, and the per-segment poses are all-gathered
-at the end and joined by chaining relative poses (`join_segments`).  There is
-no collective in the per-frame loop.
+rank advances its block one frame at a time in lock-step, and the
+per-segment poses are all-gathered at the end and joined by chaining relative
+poses (`join_segments`).  There is no collective in the per-frame loop.
 
-Difference in form: the JAX package vmaps the step over the segments; the
-port runs the eager `slam_step` of each segment in turn, with no batched step
-and no CUDA graph.  Its decision is a selection on the device, as under the
-JAX package's vmap, so DoH runs on every frame of every segment.  The poses
-agree with the JAX package's within the bound its own tests set.
+A rank's block is one batch, as the JAX package's `vmap(slam_step)` is: the
+state carries a leading segment axis (`frontend.stack_states`), the step is
+`slam_step` under `torch.func.vmap` (`frontend.batched_slam_step`), and DoH
+runs once a frame over [d, S, S].  Its decision is a selection on the device,
+as under the JAX package's vmap, so detection runs on every frame of every
+segment.  On the card `run_segments` replays the batched step's CUDA graph
+(`frontend.StepGraph(maps, cfg, batch=d)`) once a frame for the whole block,
+with no host sync inside the loop; on the CPU it runs the vmapped eager step.
+Every segment gets the bits of its own `slam_step`.
 """
 
 from __future__ import annotations
@@ -30,33 +33,34 @@ from radarslampy_tpu_torch.parallel.mesh import (all_gather, axis_index, axis_si
                                                  padded_len)
 
 
-def _block(D: int, mesh: DeviceMesh) -> range:
+def _block(D: int, mesh: DeviceMesh) -> slice:
     """This rank's segments of D, a contiguous block (the last ones may be
     short or empty)."""
     per = padded_len(D, axis_size(mesh)) // axis_size(mesh)
     lo = axis_index(mesh) * per
-    return range(min(lo, D), min(lo + per, D))
+    return slice(min(lo, D), min(lo + per, D))
 
 
-def batched_init(polars0, maps, cfg: SlamConfig) -> List[frontend.SlamState]:
-    """[D, A, W] first frames -> one SlamState per segment, each at the origin."""
-    return [frontend.init_state(p, torch.zeros(3), maps, cfg) for p in polars0]
+def batched_init(polars0, maps, cfg: SlamConfig) -> frontend.SlamState:
+    """[D, A, W] first frames -> the batched SlamState (a leading D axis on
+    every leaf), each segment at the origin."""
+    return frontend.batched_init_state(polars0, torch.zeros((len(polars0), 3)), maps, cfg)
 
 
 def make_batched_init(cfg: SlamConfig, mesh: DeviceMesh):
-    """init(polars0 [D, A, W], maps) -> the states of this rank's segments."""
+    """init(polars0 [D, A, W], maps) -> the batched state of this rank's
+    segments."""
     def init(polars0, maps):
-        return batched_init([polars0[d] for d in _block(len(polars0), mesh)], maps, cfg)
+        return batched_init(polars0[_block(len(polars0), mesh)], maps, cfg)
     return init
 
 
 def make_batched_step(cfg: SlamConfig, mesh: DeviceMesh):
-    """step(states, polars [D, A, W], maps) -> (states, StepOutputs) of this
-    rank's segments: each advanced by one frame, in turn."""
+    """step(states, polars [D, A, W], maps) -> (states, StepOutput with
+    fields [d, ...]) of this rank's d segments, all advanced by one frame in
+    one vmapped step."""
     def step(states, polars, maps):
-        outs = [frontend.slam_step(s, polars[d], maps, cfg)
-                for s, d in zip(states, _block(len(polars), mesh))]
-        return [s for s, _ in outs], [o for _, o in outs]
+        return frontend.batched_slam_step(states, polars[_block(len(polars), mesh)], maps, cfg)
     return step
 
 
@@ -80,18 +84,19 @@ def join_segments(segment_poses: List[np.ndarray]) -> np.ndarray:
 
 def run_segments(frames, maps, cfg: SlamConfig, mesh: DeviceMesh) -> np.ndarray:
     """frames [D, T, A, W] (u8 or float scans) -> [D, T, 3] per-segment poses
-    (each segment in its own origin frame), the same on every rank."""
+    (each segment in its own origin frame), the same on every rank.  This
+    rank's block goes through one `StepGraph(maps, cfg, batch=d)`: on the
+    card one replay a frame for all d segments, the rows kept on the device
+    until the end."""
     D, T = frames.shape[:2]
-    init = make_batched_init(cfg, mesh)
-    step = make_batched_step(cfg, mesh)
-    states = init(frames[:, 0], maps)
     dev = maps.warp.idx0.device
-    poses = [[torch.zeros(3, device=dev)] for _ in states]
-    for t in range(1, T):
-        states, outs = step(states, frames[:, t], maps)
-        for log, out in zip(poses, outs):
-            log.append(out.pose)
+    block = _block(D, mesh)
+    local = torch.zeros((block.stop - block.start, T, 3), device=dev)
+    if len(local):
+        seg = frames[block]
+        graph = frontend.StepGraph(maps, cfg, batch=len(local))
+        graph.load(batched_init(seg[:, 0], maps, cfg))
+        for t in range(1, T):
+            local[:, t] = graph.step(seg[:, t])[:, :3]
     per = padded_len(D, axis_size(mesh)) // axis_size(mesh)
-    local = (torch.stack([torch.stack(p) for p in poses]) if poses
-             else torch.zeros((0, T, 3), device=dev))
     return all_gather(pad_rows(local, per), mesh)[:D].cpu().numpy()

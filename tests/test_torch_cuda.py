@@ -428,3 +428,126 @@ def test_graph_keeps_the_tables_it_captured(cuda):
         assert torch.equal(g.step(f), F.pack_output(out))
         assert states_equal(g.state, state)
     del filler
+
+
+@pytest.mark.parametrize("size", [1024, 1000])
+def test_batched_doh_kernel_equals_single_launches(cuda, size):
+    """One launch over D images against D launches of one image each: equal
+    bit for bit (each image's arithmetic does not depend on the batch), one
+    launch counted; through vmap's batching rule too; each image against the
+    twin with the tolerance above."""
+    D = 4
+    g = torch.Generator(device=cuda).manual_seed(size + 1)
+    imgs = torch.rand((D, size, size), generator=g, device=cuda)
+    imgs = torch.nn.functional.avg_pool2d(imgs[:, None], 5, 1, 2)[:, 0].contiguous()
+    filters = doh_cuda.build_doh_filters((1.0, 5.0, 10.0), cuda)
+    before = doh_cuda.launches
+    out = doh_cuda.doh_response(imgs, filters)
+    assert doh_cuda.launches == before + 1 and out.shape == (D, 3, size, size)
+    vm = torch.func.vmap(lambda x: doh_cuda.doh_response(x, filters))(imgs)
+    assert doh_cuda.launches == before + 2
+    singles = [doh_cuda.doh_response(imgs[d], filters) for d in range(D)]
+    torch.cuda.synchronize()
+    assert torch.equal(vm, out)
+    for d in range(D):
+        assert torch.equal(out[d], singles[d]), d
+        ref = doh_cuda.doh_response_reference(imgs[d], filters)
+        for s in range(3):
+            tol = 2e-3 * float(ref[s].abs().max())
+            assert float((out[d, s] - ref[s]).abs().max()) <= tol, (d, s)
+
+
+def _batched_case(cuda, D=3, n=5):
+    """D segments of `_graph_case`'s track at shifted starts, as u8 frames
+    [D, n, A, W] on the card, and the maps."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.sim import fakedata as fd
+
+    cfg = SlamConfig(**GRAPH_KW)
+    frames = []
+    for d in range(D):
+        poses = np.array([[1.2 * t + 5.0 * d, 0.3 * d, 0.01 * t] for t in range(n)])
+        frames.append(np.stack([np.clip(np.round(s * 255.0), 0, 255).astype(np.uint8)
+                                for _, s in fd.render_sequence(np.random.default_rng(3), poses,
+                                                               cfg, n_landmarks=1200,
+                                                               noise=0.01)]))
+    frames = np.stack(frames)
+    frames[-1, -2] = np.random.default_rng(4).integers(0, 40, frames.shape[2:], dtype=np.uint8)
+    return cfg, F.build_frame_maps(cfg, cuda), torch.as_tensor(frames, device=cuda)
+
+
+def _single_graph_runs(cfg, maps, frames):
+    """Each segment through a StepGraph of its own: its rows [n - 1, 13] and
+    final state."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models import frontend as F
+
+    runs = []
+    for seg in frames:
+        g = F.StepGraph(maps, cfg)
+        g.load(F.init_state(seg[0], np.zeros(3), maps, cfg))
+        rows = torch.stack([g.step(f).clone() for f in seg[1:]])
+        runs.append((rows, g.snapshot()))
+    return runs
+
+
+def test_batched_graph_equals_single_step_graphs(cuda):
+    """StepGraph(batch=D) against D StepGraphs stepped in turn: every packed
+    row and the final state of every segment bit for bit; one DoH launch a
+    frame for all D (and one for the capture's warm-up step)."""
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
+    cfg, maps, frames = _batched_case(cuda)
+    D = len(frames)
+    singles = _single_graph_runs(cfg, maps, frames)
+    before = doh_cuda.launches
+    s0 = F.batched_init_state(frames[:, 0], torch.zeros(D, 3), maps, cfg)
+    assert doh_cuda.launches == before + 1
+    g = F.StepGraph(maps, cfg, batch=D)
+    g.load(s0)
+    rows = []
+    for t in range(1, frames.shape[1]):
+        before = doh_cuda.launches
+        rows.append(g.step(frames[:, t]).clone())
+        assert doh_cuda.launches == before + (2 if t == 1 else 1)
+    rows = torch.stack(rows)
+    for d, (r, s) in enumerate(singles):
+        assert torch.equal(rows[:, d], r), d
+        assert states_equal(F.unstack_states(g.snapshot())[d], s), d
+
+
+def test_batched_graph_keeps_the_tables_it_captured(cuda):
+    """A captured batched graph with every table cache cleared (the DoH
+    schedule of D images among them) and the freed memory refilled: its
+    replays still equal the single StepGraphs bit for bit."""
+    import gc
+
+    from radarslampy_tpu_torch.models import frontend as F
+    from radarslampy_tpu_torch.ops import features, motion, tracking
+    from radarslampy_tpu_torch.utils.checkpoint import states_equal
+
+    cfg, maps, frames = _batched_case(cuda)
+    D = len(frames)
+    singles = _single_graph_runs(cfg, maps, frames)
+    g = F.StepGraph(maps, cfg, batch=D)
+    g.load(F.batched_init_state(frames[:, 0], torch.zeros(D, 3), maps, cfg))
+    rows = [g.step(frames[:, 1]).clone()]
+    assert g._tables
+    for cached in (features._gaussian_taps, features._sigma_table, tracking._binomial_taps,
+                   motion._information, doh_cuda._launch_plan):
+        cached.cache_clear()
+    gc.collect()
+    filler = [torch.full((n,), float("nan"), device=cuda)
+              for n in (1, 3, 5, 16, 61, 128, 512) for _ in range(512)]
+    for t in range(2, frames.shape[1]):
+        rows.append(g.step(frames[:, t]).clone())
+    rows = torch.stack(rows)
+    for d, (r, s) in enumerate(singles):
+        assert torch.equal(rows[:, d], r), d
+        assert states_equal(F.unstack_states(g.snapshot())[d], s), d
+    del filler

@@ -110,3 +110,30 @@ def test_dispatch_cpu_twin_and_refusals():
         doh_cuda.doh_response_cuda(torch.rand(70, 70), filters)
     with pytest.raises(ValueError):
         doh_cuda.doh_response(torch.empty(70, 70, device="meta"), filters)
+
+
+def test_vmap_of_the_op_is_the_twin_per_image(rng):
+    """`doh_response` under torch.func.vmap (the batched step's DoH): its
+    batching rule runs the twin image by image on the CPU, so each image has
+    the twin's bits, with no launch and no vmap fallback; against the JAX
+    package's vmapped matmul path within the tolerance above."""
+    size = 96
+    imgs = np.stack([_img(rng, size) for _ in range(3)])
+    filters = doh_cuda.build_doh_filters(SIGMAS, "cpu")
+    before = doh_cuda.launches
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        out = torch.func.vmap(lambda x: doh_cuda.doh_response(x, filters))(
+            torch.from_numpy(imgs))
+        out_t = torch.func.vmap(lambda x: doh_cuda.doh_response(x, filters), in_dims=1,
+                                out_dims=1)(torch.from_numpy(imgs).transpose(0, 1))
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(True)
+    assert out.shape == (3, len(SIGMAS), size, size) and doh_cuda.launches == before
+    ref = jax.vmap(lambda x: dp.doh_response_matmul(x, _mats(size), SIGMAS))(jnp.asarray(imgs))
+    for d in range(3):
+        twin = doh_cuda.doh_response_reference(torch.from_numpy(imgs[d]), filters)
+        assert torch.equal(out[d], twin) and torch.equal(out_t[:, d], twin)
+        _assert_doh_close(out[d].numpy(), np.asarray(ref[d]))
+    # the op itself takes images [..., S, S]
+    assert torch.equal(doh_cuda.doh_response(torch.from_numpy(imgs), filters), out)

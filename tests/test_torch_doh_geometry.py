@@ -89,3 +89,33 @@ def test_filters_are_checked_when_built():
     assert f.taps.dtype == torch.float32 and f.taps.shape == (3, 61)
     assert f.scales == (1.0, 625.0, 10000.0) and f.taps.is_contiguous()
     assert f.radii == (3, 15, 30)
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("size,radii", [(77, (3, 15, 30)), (1000, (0, 6)), (1024, (3, 15, 30))])
+def test_batched_grid_covers_every_pixel_once(size, radii, batch):
+    """A launch over `batch` images: every (image, sigma, pixel) of the
+    [batch * n_sigma, S, S] output written once, the blocks still balanced."""
+    g = doh_cuda.launch_geometry(size, radii, N_SM, batch)
+    count = np.zeros((batch * len(radii), size, size), np.int32)
+    for b, plane, y0, x0, rows, cols in doh_cuda.work_items(size, radii, N_SM, batch):
+        assert 0 <= b < g.grid
+        count[plane, y0:y0 + rows, x0:x0 + cols] += 1
+    assert (count == 1).all()
+    tiles = g.n_strips * g.n_bands
+    loads = [sum(doh_cuda.item_cost(radii[(i // tiles) % len(radii)]) for i in sl)
+             for sl in g.slots]
+    assert max(loads) - min(loads) <= doh_cuda.item_cost(max(radii))
+    sched = doh_cuda.schedule_array(g)
+    assert len(sched) == g.grid + 1 + batch * len(radii) * tiles
+    assert g.smem_bytes == doh_cuda.launch_geometry(size, radii, N_SM).smem_bytes
+
+
+def test_batched_bound_is_the_batch_times_the_work():
+    radii = (3, 15, 30)
+    one, by = doh_cuda.doh_bound_ms(1024, radii)
+    four, by4 = doh_cuda.doh_bound_ms(1024, radii, 4)
+    assert by == by4 == "operations"
+    assert four == pytest.approx(4 * one, rel=1e-12)
+    with pytest.raises(ValueError):
+        doh_cuda.launch_geometry(1024, radii, N_SM, 0)

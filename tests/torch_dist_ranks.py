@@ -131,13 +131,24 @@ def check_dist_ba(inp, mesh):
 
 
 def check_batch_odometry(inp, mesh):
-    """`run_segments` over the segments of `inp` on `mesh`."""
+    """`run_segments` over the segments of `inp` on `mesh`, and the poses of
+    this rank's segments stepped by `make_batched_init` / `make_batched_step`."""
     from radarslampy_tpu_torch.config import SlamConfig
     from radarslampy_tpu_torch.models.frontend import build_frame_maps
-    from radarslampy_tpu_torch.parallel.batch_odometry import run_segments
+    from radarslampy_tpu_torch.parallel.batch_odometry import (make_batched_init,
+                                                               make_batched_step, run_segments)
 
     cfg = SlamConfig(**inp["cfg"])
-    return {"poses": run_segments(inp["frames"], build_frame_maps(cfg, "cpu"), cfg, mesh)}
+    maps = build_frame_maps(cfg, "cpu")
+    frames = inp["frames"]
+    step = make_batched_step(cfg, mesh)
+    states = make_batched_init(cfg, mesh)(frames[:, 0], maps)
+    poses = [states.pose]
+    for t in range(1, frames.shape[1]):
+        states, out = step(states, frames[:, t], maps)
+        poses.append(out.pose)
+    return {"poses": run_segments(frames, maps, cfg, mesh),
+            "block_poses": torch.stack(poses, dim=1)}
 
 
 CHECKS = {"parallel": check_parallel, "dist_ba": check_dist_ba,
