@@ -66,14 +66,23 @@ Phases, one line each (elapsed seconds in brackets):
      0 on the card and on the CPU; (g) the CLI `evaluation.main` on a
      written GT csv, its artifact holding the JAX CLI's keys;
   9. the distributed back-end (`parallel/`) in a world of one rank joined
-     through `parallel.launch.initialize` (NCCL): (a) the sharded pose graph,
-     dense on phase 7's loop graph (equal bit for bit to the single-device
-     solve) and "gather" and "pcg" on the 1,280-row graph of the
-     1,100-keyframe map at 3 LM iterations; (b) the sharded BA, dense on the
-     loop's problem and PCG on the 1,100-pose problem at 3 LM iterations,
-     both within 1e-3 m and a cost rtol of 1e-3 of the single-device
-     solvers; (c) the sharded map queries on the 1,100-keyframe map, equal to
-     the dense ones; (d) the sharded loop verification of that map's
+     through `parallel.launch.initialize` (NCCL), with the NCCL version and
+     the NCCL variables set: (a) the sharded pose graph, dense on phase 7's
+     loop graph (equal bit for bit to the single-device solve) and "gather"
+     and "pcg" on the 1,280-row graph of the 1,100-keyframe map at 3 LM
+     iterations; (b) the sharded BA, dense on the loop's problem and PCG on
+     the 1,100-pose problem at 3 LM iterations, each within 1e-3 m and a
+     cost rtol of 1e-3 of the single-device solvers; the sharded PCG pose
+     graph and BA (their sweeps replayed from a CUDA graph holding the
+     all-reduce) equal bit for bit to their eager sharded sweeps
+     (`replay=False`) and to the single-device PCG, with the ms a sweep of
+     all three, the sweeps, captures and capture ms; then one LM iteration
+     of both, 4 checks' sweeps, traced captured and eager: every replay has
+     its device events, and the replays launch as many NCCL all-reduce
+     kernels a sweep as the eager window's all-reduces a call (logged with
+     their names; none at one rank, where NCCL launches no kernel for an
+     in-place sum); (c) the sharded map queries on the 1,100-keyframe map,
+     equal to the dense ones; (d) the sharded loop verification of that map's
      candidates against serial `verify_candidate`; (e) `run_segments` at
      `SlamConfig()` over 4 segments of 8 frames of one arc, as one batch (the
      batched step's CUDA graph), equal bit for bit to the segments run one
@@ -953,8 +962,11 @@ def eval_checks(torch, cfg, card):
 # the single-device solvers are those of the JAX package's tests/test_parallel.py
 # (poses 1e-3 m, cost rtol 1e-3 / atol 1e-4).  A world of one pads nothing, so
 # the dense solves must be equal bit for bit, and only a padded edge list (which
-# reorders a sum) may differ, by PAR_PAD_RTOL.
+# reorders a sum) may differ, by PAR_PAD_RTOL; the sharded PCG solves, captured
+# and eager, must equal the single-device PCG bit for bit.  Their trace runs
+# one LM iteration capped at PAR_TRACE_CHECKS checks' sweeps.
 PAR_ITERS = 3
+PAR_TRACE_CHECKS = 4
 PAR_M, PAR_COST_RTOL, PAR_COST_ATOL, PAR_PAD_RTOL = 1e-3, 1e-3, 1e-4, 1e-6
 PAR_REL = 1e-5          # (d) rel_pose against serial verify_candidate
 PAR_SEGMENTS, PAR_SEG_FRAMES, PAR_SEED = 4, 8, 6   # (e) segments overlapping by one frame
@@ -978,14 +990,70 @@ def cost_close(c, ref):
     return abs(float(c) - float(ref)) <= PAR_COST_RTOL * abs(float(ref)) + PAR_COST_ATOL
 
 
+def sharded_pcg(torch, g, p, cfg, mesh, replay, stats_pg, stats_ba):
+    """The sharded PCG pose graph (`g`) and BA (`p`) as their entry points run
+    them (this rank's block, the mesh's hooks), with the solvers' `replay`;
+    either problem may be None -> ((poses, cost), (poses, landmarks, cost))."""
+    from radarslampy_tpu_torch.models.ba import _optimize_ba_pcg
+    from radarslampy_tpu_torch.models.posegraph import _optimize_pose_graph_pcg
+    from radarslampy_tpu_torch.parallel.dist_ba import _local_problem
+    from radarslampy_tpu_torch.parallel.dist_posegraph import _local_edges
+    from radarslampy_tpu_torch.parallel.mesh import all_gather, pmax, psum
+
+    def red(x):
+        return psum(x, mesh)
+
+    pg = ba = None
+    if g is not None:
+        pg = _optimize_pose_graph_pcg(_local_edges(g, mesh), cfg, stats=stats_pg, reduce_fn=red,
+                                      reduce_max_fn=lambda x: pmax(x, mesh), replay=replay)
+    if p is not None:
+        poses, lms, cost = _optimize_ba_pcg(_local_problem(p, mesh), cfg, stats=stats_ba,
+                                            reduce_fn=red, replay=replay)
+        ba = (poses, all_gather(lms, mesh), cost)
+    return pg, ba
+
+
+def cg_trace(torch, g, p, cfg, mesh):
+    """Phase 9 (a)-(b): one LM iteration of the sharded PCG pose graph and BA,
+    capped at PAR_TRACE_CHECKS checks' sweeps, under torch.profiler, captured
+    and then eager (`replay=False`) -> (captured, eager): each
+    `utils/profiling.collective_trace` of its window and the two solves'
+    stats.  A lead-in of small kernels opens each window unread (a trace that
+    follows others in a process can lose its first moments' device events)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch.models.posegraph import SWEEPS_PER_CHECK
+    from radarslampy_tpu_torch.utils.profiling import collective_trace
+
+    short = dataclasses.replace(cfg, pg_iterations=1,
+                                pg_cg_iterations=PAR_TRACE_CHECKS * SWEEPS_PER_CHECK)
+    out = []
+    for replay in (True, False):
+        st_pg, st_ba = {}, {}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lead = torch.zeros(1, device="cuda")
+            for _ in range(20):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
+            sharded_pcg(torch, g, p, short, mesh, replay, st_pg, st_ba)
+            torch.cuda.synchronize()
+        out.append((collective_trace(prof.events()), st_pg, st_ba))
+    return out
+
+
 def parallel_solvers(torch, cfg, mesh, loop_map, scale):
     """Phase 9 (a)-(b): the sharded pose graph and BA against the
-    single-device solvers; returns one dict per comparison."""
+    single-device solvers, and the sharded PCG's captured sweeps against its
+    eager ones; returns one dict per comparison, and the PCG trace."""
     import dataclasses
 
     from radarslampy_tpu_torch.models.ba import build_ba_problem, optimize_ba, reseed_map
     from radarslampy_tpu_torch.models.loopclosure import close_loops
-    from radarslampy_tpu_torch.models.posegraph import optimize_pose_graph
+    from radarslampy_tpu_torch.models.posegraph import SWEEPS_PER_CHECK, optimize_pose_graph
     from radarslampy_tpu_torch.parallel.dist_ba import optimize_ba_sharded
     from radarslampy_tpu_torch.parallel.dist_posegraph import optimize_pose_graph_sharded
     from radarslampy_tpu_torch.parallel.mesh import axis_size
@@ -1002,39 +1070,92 @@ def parallel_solvers(torch, cfg, mesh, loop_map, scale):
                     ms=ms, single_ms=ms_ref,
                     ok=equal or (padded and rel <= PAR_PAD_RTOL)))
 
+    def per_sweep(ms, st):
+        return ms / max(st["cg_sweeps"], 1)
+
+    def batch_sweep(st):
+        """Host ms a sweep in the batches after each first check (replays and
+        checks, or eager sweeps and checks), LM work left out."""
+        return st["cg_batch_s"] * 1e3 / max(st["cg_batches"] * SWEEPS_PER_CHECK, 1)
+
+    def pcg_row(row, st, ms, eager, eager_st, eager_ms, single_st, single_ms, bits):
+        """The captured solve's readings beside the eager sharded and the
+        single-device solves'; all three equal bit for bit, or not ok."""
+        row.update(cg_sweeps=st["cg_sweeps"], eager_cg_sweeps=eager_st["cg_sweeps"],
+                   single_cg_sweeps=single_st["cg_sweeps"], captures=st["cg_captures"],
+                   replays=st["cg_batches"], capture_ms=st["cg_capture_s"] * 1e3,
+                   single_captures=single_st["cg_captures"],
+                   single_capture_ms=single_st["cg_capture_s"] * 1e3,
+                   eager_captures=eager_st["cg_captures"], equal_eager=eager,
+                   ms=ms, eager_ms=eager_ms, single_ms=single_ms,
+                   ms_per_sweep=per_sweep(ms, st),
+                   eager_ms_per_sweep=per_sweep(eager_ms, eager_st),
+                   single_ms_per_sweep=per_sweep(single_ms, single_st),
+                   batch_ms_per_sweep=batch_sweep(st),
+                   eager_batch_ms_per_sweep=batch_sweep(eager_st),
+                   single_batch_ms_per_sweep=batch_sweep(single_st),
+                   ok=bits and eager and st["cg_captures"] > 0 and eager_st["cg_captures"] == 0
+                   and st["cg_sweeps"] == eager_st["cg_sweeps"] == single_st["cg_sweeps"])
+        return row
+
     cfg3 = dataclasses.replace(cfg, pg_iterations=PAR_ITERS)
     g = scale["graph"]
     st = {}
     (rp3, rc3), ms_ref = timed(torch, lambda: optimize_pose_graph(g, cfg3, method="pcg", stats=st))
-    for method in ("gather", "pcg"):
-        sm = {}
-        (p3, c3), ms = timed(torch, lambda: optimize_pose_graph_sharded(g, cfg3, mesh, method, sm))
-        d = pose_diff(p3, rp3)
-        out.append(dict(part="a", solver=f"pose graph {method}", rows=g.poses.shape[0],
-                        edges=g.edges_ij.shape[0], cg_sweeps=sm["cg_sweeps"],
-                        single_cg_sweeps=st["cg_sweeps"], max_diff=d, cost=float(c3),
-                        single_cost=float(rc3), equal=torch.equal(p3, rp3), ms=ms,
-                        single_ms=ms_ref, ms_per_sweep=ms / max(sm["cg_sweeps"], 1),
-                        single_ms_per_sweep=ms_ref / max(st["cg_sweeps"], 1),
-                        ok=max(d) <= PAR_M and cost_close(c3, rc3)))
+    sm = {}
+    (p3, c3), ms = timed(torch, lambda: optimize_pose_graph_sharded(g, cfg3, mesh, "gather", sm))
+    d = pose_diff(p3, rp3)
+    out.append(dict(part="a", solver="pose graph gather", rows=g.poses.shape[0],
+                    edges=g.edges_ij.shape[0], cg_sweeps=sm["cg_sweeps"],
+                    single_cg_sweeps=st["cg_sweeps"], max_diff=d, cost=float(c3),
+                    single_cost=float(rc3), equal=torch.equal(p3, rp3), ms=ms,
+                    single_ms=ms_ref, ms_per_sweep=per_sweep(ms, sm),
+                    single_ms_per_sweep=per_sweep(ms_ref, st),
+                    ok=max(d) <= PAR_M and cost_close(c3, rc3)))
+    sm, se = {}, {}
+    (p3, c3), ms = timed(torch, lambda: optimize_pose_graph_sharded(g, cfg3, mesh, "pcg", sm))
+    ((e3, ec3), _), ms_e = timed(torch, lambda: sharded_pcg(torch, g, None, cfg3, mesh, False,
+                                                            se, None))
+    equal = torch.equal(p3, rp3) and torch.equal(c3, rc3)
+    out.append(pcg_row(dict(part="a", solver="pose graph pcg", rows=g.poses.shape[0],
+                            edges=g.edges_ij.shape[0], max_diff=pose_diff(p3, rp3),
+                            cost=float(c3), single_cost=float(rc3), equal=equal),
+                       sm, ms, torch.equal(p3, e3) and torch.equal(c3, ec3), se, ms_e, st,
+                       ms_ref, equal))
 
     M = int(loop_map.cursor)
     p_loop = build_ba_problem(reseed_map(loop_map, rp[:M].cpu().numpy()), min_views=2)
+    st, sm = {}, {}
+    (rpo, rl, rc), ms_ref = timed(torch, lambda: optimize_ba(p_loop, cfg, method="dense",
+                                                             stats=st))
+    (bpo, bl, bc), ms = timed(torch, lambda: optimize_ba_sharded(p_loop, cfg, mesh,
+                                                                 method="dense", stats=sm))
+    L = rl.shape[0]
+    d = pose_diff(bpo, rpo) + [float((bl[:L] - rl).abs().max())]
+    out.append(dict(part="b", solver="BA dense (loop)", poses=p_loop.poses.shape[0],
+                    landmarks=int(p_loop.lm_mask.sum()), observations=int(p_loop.obs_mask.sum()),
+                    max_diff=d, cost=float(bc), single_cost=float(rc),
+                    equal=torch.equal(bpo, rpo) and torch.equal(bl[:L], rl), ms=ms,
+                    single_ms=ms_ref, ok=max(d) <= PAR_M and cost_close(bc, rc)))
     p_big = scale["problem"]
-    for name, p, method, c in (("loop", p_loop, "dense", cfg), ("scale", p_big, "pcg", cfg3)):
-        st, sm = {}, {}
-        (rpo, rl, rc), ms_ref = timed(torch, lambda: optimize_ba(p, c, method=method, stats=st))
-        (bpo, bl, bc), ms = timed(torch, lambda: optimize_ba_sharded(p, c, mesh, method=method,
-                                                                     stats=sm))
-        L = rl.shape[0]
-        d = pose_diff(bpo, rpo) + [float((bl[:L] - rl).abs().max())]
-        out.append(dict(part="b", solver=f"BA {method} ({name})", poses=p.poses.shape[0],
-                        landmarks=int(p.lm_mask.sum()), observations=int(p.obs_mask.sum()),
-                        cg_sweeps=sm["cg_sweeps"], single_cg_sweeps=st["cg_sweeps"],
-                        max_diff=d, cost=float(bc), single_cost=float(rc),
-                        equal=torch.equal(bpo, rpo) and torch.equal(bl[:L], rl), ms=ms,
-                        single_ms=ms_ref, ok=max(d) <= PAR_M and cost_close(bc, rc)))
-    return out
+    st, sm, se = {}, {}, {}
+    (rpo, rl, rc), ms_ref = timed(torch, lambda: optimize_ba(p_big, cfg3, method="pcg",
+                                                             stats=st))
+    (bpo, bl, bc), ms = timed(torch, lambda: optimize_ba_sharded(p_big, cfg3, mesh, method="pcg",
+                                                                 stats=sm))
+    (_, (epo, el, ec)), ms_e = timed(torch, lambda: sharded_pcg(torch, None, p_big, cfg3, mesh,
+                                                                False, None, se))
+    L = rl.shape[0]
+    equal = torch.equal(bpo, rpo) and torch.equal(bl[:L], rl) and torch.equal(bc, rc)
+    out.append(pcg_row(dict(part="b", solver="BA pcg (scale)", poses=p_big.poses.shape[0],
+                            landmarks=int(p_big.lm_mask.sum()),
+                            observations=int(p_big.obs_mask.sum()),
+                            max_diff=pose_diff(bpo, rpo) + [float((bl[:L] - rl).abs().max())],
+                            cost=float(bc), single_cost=float(rc), equal=equal),
+                       sm, ms,
+                       torch.equal(bpo, epo) and torch.equal(bl, el) and torch.equal(bc, ec),
+                       se, ms_e, st, ms_ref, equal))
+    return out, cg_trace(torch, g, p_big, cfg3, mesh)
 
 
 def parallel_queries(torch, cfg, mesh, m):
@@ -1185,6 +1306,37 @@ def parallel_launcher(torch, mesh):
     return out
 
 
+def check_cg_trace(trace, card):
+    """Phase 9 (a)-(b): logs and checks `cg_trace`'s windows.  Each replay has
+    its device events; the replays launch as many NCCL all-reduce kernels a
+    sweep as the eager window's all-reduces launch a call (NCCL's one-rank
+    path launches none for an in-place sum), and both windows launch the same
+    NCCL kernels in all; the device events a replayed sweep (the graph's 5
+    state copies taken off) beside an eager sweep's."""
+    from radarslampy_tpu_torch.models.posegraph import SWEEPS_PER_CHECK
+
+    (cap, cap_pg, cap_ba), (eager, *_) = trace
+    replays = cap_pg["cg_batches"] + cap_ba["cg_batches"]
+    swept = SWEEPS_PER_CHECK * replays
+    per_call = eager["eager_nccl"] / max(eager["allreduce_calls"], 1)
+    replayed_sweep = (cap["replayed_events"] - 5 * replays) / max(swept, 1)
+    eager_sweep = (eager["eager_events"] - cap["eager_events"]) / max(swept, 1)
+    log(f"parallel (a)-(b) trace: one LM iteration of the sharded PCG pose graph and BA, "
+        f"{PAR_TRACE_CHECKS} checks' sweeps, on {card}: {cap['replays']} replays "
+        f"({cap_pg['cg_batches']} + {cap_ba['cg_batches']}, {swept} sweeps replayed; "
+        f"{cap_pg['cg_captures']} + {cap_ba['cg_captures']} captures), "
+        f"{cap['replays_without_events']} without device events; NCCL all-reduce kernels: "
+        f"{cap['replayed_nccl']} in the replays, {cap['eager_nccl']} outside them, "
+        f"{eager['eager_nccl']} in the eager window for its {eager['allreduce_calls']} "
+        f"all-reduce calls ({per_call:.4g} a call); names {cap['nccl_names'] or 'none'}; "
+        f"device events a replayed sweep {replayed_sweep:.4g}, an eager sweep {eager_sweep:.4g}")
+    if not (cap["replays"] == replays > 0 and cap["replays_without_events"] == 0
+            and cap["replayed_nccl"] == per_call * swept
+            and cap["eager_nccl"] + cap["replayed_nccl"] == eager["eager_nccl"]):
+        raise AssertionError(f"parallel (a)-(b): the PCG trace's replays do not hold the "
+                             f"eager sweeps' all-reduces: {cap} against {eager}")
+
+
 def parallel_checks(torch, cfg, card, loop_state, scale, maps):
     """Phase 9: drives the parts above in a world of one rank joined through
     `launch.initialize` (NCCL), logs and checks what they return; returns the
@@ -1199,9 +1351,13 @@ def parallel_checks(torch, cfg, card, loop_state, scale, maps):
     launch.initialize(f"localhost:{free_port()}", 1, 0)
     try:
         mesh = make_mesh()
+        nccl_env = {k: v for k, v in os.environ.items() if k.startswith(("NCCL", "TORCH_NCCL"))}
         log(f"parallel: world {dist.get_world_size()}, backend {dist.get_backend()}, mesh "
-            f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
-        solvers = parallel_solvers(torch, cfg, mesh, trim_map_state(loop_state.map), scale)
+            f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}; NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))} in torch, NCCL and TORCH_NCCL "
+            f"variables set: {nccl_env or 'none'}")
+        solvers, trace = parallel_solvers(torch, cfg, mesh, trim_map_state(loop_state.map),
+                                          scale)
         queries = parallel_queries(torch, cfg, mesh, scale["map"])
         segs = parallel_segments(torch, cfg, mesh, maps)
         benches = parallel_launcher(torch, mesh)
@@ -1214,7 +1370,9 @@ def parallel_checks(torch, cfg, card, loop_state, scale, maps):
             for k, v in r.items() if k != "part") + f" (ms: synchronised host ms on {card})")
     bad = [r["solver"] for r in solvers if not r["ok"]]
     if bad:
-        raise AssertionError(f"parallel (a)/(b): sharded solvers off the single-device ones: {bad}")
+        raise AssertionError(f"parallel (a)/(b): sharded solvers off the single-device ones, or "
+                             f"the sharded PCG's captured sweeps off its eager ones: {bad}")
+    check_cg_trace(trace, card)
     if not solvers[0]["equal"]:
         log(f"parallel (a): the dense solve differs from the single-device one by "
             f"{solvers[0]['max_rel']:.3g} relative: the edge list was padded to a multiple of "

@@ -20,6 +20,7 @@ through `ops/scatter.py`.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -298,7 +299,7 @@ def _optimize_ba_dense(p: BAProblem, cfg: SlamConfig, max_views_per_landmark: in
 
 
 def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats=None,
-                     reduce_fn=None):
+                     reduce_fn=None, replay: bool = True):
     """Matrix-free Schur BA.  The reduced operator S = Hpp - U Hll^-1 U^T is
     applied as
         S v = Hpp_m v_m - sum_{o in m} U_o Hinv_l(o) t_l(o),
@@ -309,8 +310,10 @@ def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats
     `reduce_fn` sums landmark-parallel contributions over ranks when `p`
     holds only this rank's landmarks and their observations
     (parallel/dist_ba.py): only [M, 3] and [M, 3, 3] arrays cross ranks, and
-    every value a branch reads is reduced.  Defaults to the identity; with
-    `reduce_fn` the sweeps run eagerly (no CUDA graph)."""
+    every value a branch reads is reduced.  Defaults to the identity.  On the
+    card the sweeps are replayed from a CUDA graph, with or without
+    `reduce_fn` (its all-reduce captured too); `replay` False runs them
+    eagerly.  `stats` as in `posegraph._optimize_pose_graph_pcg`."""
     dtype, dev = p.poses.dtype, p.poses.device
     M, L = p.poses.shape[0], p.landmarks.shape[0]
     hd = cfg.pg_huber_delta
@@ -325,7 +328,8 @@ def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats
     poses, landmarks = p.poses, p.landmarks
     lam = torch.tensor(1e-3, dtype=dtype, device=dev)
     cost = red(ba_cost(poses, landmarks, p, hd))
-    total = 0
+    counts = collections.Counter(cg_sweeps=0, cg_captures=0, cg_capture_s=0.0, cg_batches=0,
+                                 cg_batch_s=0.0)
     for _ in range(cfg.pg_iterations):
         Hpp, bs, Hinv, bl, U = schur_blocks(poses, landmarks, p, hd, lam)
         Hpp, bs = red(Hpp), red(bs)
@@ -342,11 +346,11 @@ def _optimize_ba_pcg(p: BAProblem, cfg: SlamConfig, sweeps_per_check=None, stats
                                  torch.einsum("oab,ob->oa", U, s[p.obs_lm])))
             return torch.einsum("mab,mb->ma", Hpp, v) - Uv + fix[:, None] * v + damp * v
 
-        delta_p, sweeps = conjugate_gradient(afun, pinv, bs, n_cg, spc, replay=reduce_fn is None)
-        total += sweeps
+        delta_p, sweeps = conjugate_gradient(afun, pinv, bs, n_cg, spc, replay, counts)
+        counts["cg_sweeps"] += sweeps
         delta_l = back_substitute_landmarks(Hinv, bl, U, delta_p, p)
         poses, landmarks, lam, cost = _accept(poses, landmarks, lam, cost, delta_p,
                                               delta_l, p, hd, red)
     if stats is not None:
-        stats["cg_sweeps"] = total
+        stats.update(counts)
     return poses, landmarks, cost

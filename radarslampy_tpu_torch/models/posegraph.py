@@ -21,6 +21,8 @@ CUDA graph of those sweeps is replayed between checks).
 
 from __future__ import annotations
 
+import collections
+import time
 from typing import NamedTuple
 
 import torch
@@ -227,67 +229,95 @@ def _optimize_pose_graph_dense(g: PoseGraph, cfg: SlamConfig, reduce_fn=None,
     return poses, red(graph_cost(poses, g, cfg.pg_huber_delta))
 
 
-def conjugate_gradient(afun, pinv, b, n_cg: int, sweeps_per_check: int, replay: bool = True):
+def _cg_active(it, rz, rz0, n_cg: int):
+    """The PCG's rule for going on: under `n_cg` sweeps and r.z not yet
+    below 1e-10 r0.z0 or 1e-20."""
+    return (it < n_cg) & (rz > 1e-10 * rz0) & (rz > 1e-20)
+
+
+def cg_sweeps(afun, pinv, state, rz0, n_cg: int, count: int):
+    """`count` block-Jacobi PCG sweeps from `state` = [x, r, p, r.z, sweeps
+    run] -> the state after them.  Each sweep is computed on the device and
+    kept only while `_cg_active` holds (a `torch.where`, no host read), so
+    sweeps past the stopping rule leave the state as it was.  This is the
+    body that `conjugate_gradient` captures in a CUDA graph."""
+    x, rr, p, rz, it = state
+    for _ in range(count):
+        active = _cg_active(it, rz, rz0, n_cg)
+        Ap = afun(p)
+        pAp = torch.sum(p * Ap)
+        ok = pAp > 1e-30
+        alpha = torch.where(ok, rz / torch.where(ok, pAp, torch.ones_like(pAp)),
+                            torch.zeros_like(pAp))
+        rr_n = rr - alpha * Ap
+        z_n = torch.einsum("mab,mb->ma", pinv, rr_n)
+        rz_n = torch.sum(rr_n * z_n)
+        beta = torch.where(ok, rz_n / rz, torch.zeros_like(rz))
+        x = torch.where(active, x + alpha * p, x)
+        rr = torch.where(active, rr_n, rr)
+        p = torch.where(active, z_n + beta * p, p)
+        rz = torch.where(active, rz_n, rz)
+        it = it + active.to(it.dtype)
+    return [x, rr, p, rz, it]
+
+
+def conjugate_gradient(afun, pinv, b, n_cg: int, sweeps_per_check: int, replay: bool = True,
+                       stats=None):
     """Block-Jacobi PCG for A x = -b (A applied by `afun`, the [N, 3, 3] inverse
     diagonal blocks in `pinv`), x0 = 0, up to `n_cg` sweeps, stopping when
     r.z <= 1e-10 r0.z0 or <= 1e-20 -> (x, sweeps run).
 
-    Each sweep is computed on the device and kept only while the stopping
-    rule does not hold yet, so the iterates do not depend on
-    `sweeps_per_check`, the number of sweeps between two host reads of the
-    rule.  On a CUDA device the sweeps after the first `sweeps_per_check` are
-    replayed from a CUDA graph of that many sweeps: the same kernels on the
-    same buffers, without the host's launch work for each of them.  `replay`
-    False keeps every sweep eager: the sharded solvers' `afun` runs a
-    collective, which is not captured."""
-    def minv(v):
-        return torch.einsum("mab,mb->ma", pinv, v)
-
+    The sweeps (`cg_sweeps`) run `sweeps_per_check` at a time between two
+    host reads of the stopping rule; the iterates do not depend on that
+    number.  On a CUDA device the sweeps after the first `sweeps_per_check`
+    are replayed from a CUDA graph of that many sweeps: the same kernels on
+    the same buffers, without the host's launch work for each of them.  This
+    holds whether or not `afun` runs a collective (the sharded solvers'
+    `reduce_fn`): the graph then holds its all-reduce, on the communicator
+    that the eager first sweeps used.  Every rank replays the same number of
+    times: the two values a check reads, r.z and the sweep count, are built
+    from `b`, `pinv` and `afun`'s output, which every rank holds equal (the
+    inputs replicated, the edge sums all-reduced), so every rank takes the
+    same branch.  A capture that fails raises.  `replay` False runs every
+    sweep eagerly.  `stats`, when a Counter, gets added to: "cg_captures"
+    and "cg_capture_s" (host seconds capturing), "cg_batches" (the batches
+    of `sweeps_per_check` sweeps after the first check: graph replays when
+    captured) and "cg_batch_s" (their host seconds, checks included)."""
     rr = -b
-    z = minv(rr)
+    z = torch.einsum("mab,mb->ma", pinv, rr)
     rz0 = torch.sum(rr * z)
 
-    def rule(it, rz):
-        return (it < n_cg) & (rz > 1e-10 * rz0) & (rz > 1e-20)
-
     def sweeps(state):
-        x, rr, p, rz, it = state
-        for _ in range(sweeps_per_check):
-            active = rule(it, rz)
-            Ap = afun(p)
-            pAp = torch.sum(p * Ap)
-            ok = pAp > 1e-30
-            alpha = torch.where(ok, rz / torch.where(ok, pAp, torch.ones_like(pAp)),
-                                torch.zeros_like(pAp))
-            rr_n = rr - alpha * Ap
-            z_n = minv(rr_n)
-            rz_n = torch.sum(rr_n * z_n)
-            beta = torch.where(ok, rz_n / rz, torch.zeros_like(rz))
-            x = torch.where(active, x + alpha * p, x)
-            rr = torch.where(active, rr_n, rr)
-            p = torch.where(active, z_n + beta * p, p)
-            rz = torch.where(active, rz_n, rz)
-            it = it + active.to(it.dtype)
-        return [x, rr, p, rz, it]
+        return cg_sweeps(afun, pinv, state, rz0, n_cg, sweeps_per_check)
 
     def check(state):
-        more, n = torch.stack([rule(state[4], state[3]).to(torch.int64), state[4]]).tolist()
+        more, n = torch.stack([_cg_active(state[4], state[3], rz0, n_cg).to(torch.int64),
+                               state[4]]).tolist()
         return bool(more), n
 
+    stats = collections.Counter() if stats is None else stats
     state = sweeps([torch.zeros_like(b), rr, z, rz0,
                     torch.zeros((), dtype=torch.int64, device=b.device)])
     more, n = check(state)
+    run = sweeps
     if more and replay and b.is_cuda:
+        t = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for dst, src in zip(state, sweeps(state)):
                 dst.copy_(src)
-        while more:
+        stats["cg_captures"] += 1
+        stats["cg_capture_s"] += time.perf_counter() - t
+
+        def run(state):
             graph.replay()
-            more, n = check(state)
+            return state
+    t = time.perf_counter()
     while more:
-        state = sweeps(state)
+        state = run(state)
+        stats["cg_batches"] += 1
         more, n = check(state)
+    stats["cg_batch_s"] += time.perf_counter() - t
     return state[0], n
 
 
@@ -298,7 +328,8 @@ def _sweeps_per_check(cfg: SlamConfig, sweeps_per_check):
 
 
 def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=None,
-                             stats=None, reduce_fn=None, reduce_max_fn=None):
+                             stats=None, reduce_fn=None, reduce_max_fn=None,
+                             replay: bool = True):
     """Matrix-free LM: each step solves (H + lam diag(H)) delta = -b by PCG
     on the gauge-projected system (node 0 and dead nodes frozen exactly, not
     by a 1e8 penalty, which float32 CG cannot survive).  Per sweep: one
@@ -309,8 +340,12 @@ def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=Non
     vectors and [M, 3, 3] blocks cross ranks, one [M, 3] sum per sweep, and
     every value a branch reads (the CG stopping rule, the LM acceptance) is
     reduced, so all ranks take the same branches.  `reduce_max_fn` takes the
-    GNC start.  Both default to the identity; with `reduce_fn` the sweeps run
-    eagerly (no CUDA graph)."""
+    GNC start.  Both default to the identity.  On the card the sweeps are
+    replayed from a CUDA graph, with or without `reduce_fn` (its all-reduce
+    captured too); `replay` False runs them eagerly.  `stats`, when a dict,
+    receives "cg_sweeps" (summed over the LM iterations) and
+    `conjugate_gradient`'s "cg_captures", "cg_capture_s", "cg_batches" and
+    "cg_batch_s"."""
     dtype, dev = g.poses.dtype, g.poses.device
     M = g.poses.shape[0]
     n_cg = cfg.pg_cg_iterations or 8 * M
@@ -323,7 +358,8 @@ def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=Non
     zeros_m3 = torch.zeros((M, 3), dtype=dtype, device=dev)
     poses = g.poses
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    total = 0
+    counts = collections.Counter(cg_sweeps=0, cg_captures=0, cg_capture_s=0.0, cg_batches=0,
+                                 cg_batch_s=0.0)
     for hd_k in _huber_schedule(g, cfg, reduce_max_fn):
         r, Ji, Jj, W = edge_system(poses, g, hd_k)
         b = red(_gradient(r, Ji, Jj, W, ei, ej, M)) * free
@@ -342,15 +378,15 @@ def _optimize_pose_graph_pcg(g: PoseGraph, cfg: SlamConfig, sweeps_per_check=Non
                                                            torch.einsum("eab,ea->eb", Jj, u)])))
             return (Hv + damp * vf) * free + (1.0 - free) * v
 
-        delta, sweeps = conjugate_gradient(afun, pinv, b, n_cg, spc, replay=reduce_fn is None)
-        total += sweeps
+        delta, sweeps = conjugate_gradient(afun, pinv, b, n_cg, spc, replay, counts)
+        counts["cg_sweeps"] += sweeps
         cost = red(graph_cost(poses, g, hd_k))
         cand = _wrap_heading(poses + delta)
         accept = red(graph_cost(cand, g, hd_k)) < cost
         poses = torch.where(accept, cand, poses)
         lam = _lm_update(accept, lam)
     if stats is not None:
-        stats["cg_sweeps"] = total
+        stats.update(counts)
     return poses, red(graph_cost(poses, g, cfg.pg_huber_delta))
 
 

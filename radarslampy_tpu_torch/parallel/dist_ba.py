@@ -11,7 +11,8 @@ once at the end, so every rank returns the same (poses, landmarks, cost).
   * "dense": per LM iteration the local [3M, 3M] reduced system and its
     right-hand side, one `all_reduce` of each (O(M^2): small maps only);
   * "pcg":   matrix-free (`models/ba._optimize_ba_pcg` with `reduce_fn`):
-    only [M, 3] and [M, 3, 3] arrays cross ranks; its sweeps run eagerly;
+    only [M, 3] and [M, 3, 3] arrays cross ranks; on the card its sweeps are
+    replayed from a CUDA graph that holds their all-reduce;
   * "auto":  dense when M <= 512, else pcg.
 """
 

@@ -11,7 +11,10 @@ the mesh's collectives:
     the costs are all-reduced, and the GNC start is a MAX over the blocks (a
     sum would count it once per rank);
   * "pcg":    matrix-free LM, one [M, 3] `all_reduce` per CG sweep (the
-    `reduce_fn` hook); its sweeps run eagerly, not from a CUDA graph;
+    `reduce_fn` hook); on the card its sweeps are replayed from a CUDA graph
+    that holds the all-reduce (`models/posegraph.conjugate_gradient`), the
+    counterpart of the JAX package's `jit(shard_map(...))` with `psum` inside
+    its compiled CG loop;
   * "gather": one all-gather of the edge blocks per solve, then the
     single-device PCG on every rank, with no further collective;
   * "auto":   dense when M <= 1024, else gather.

@@ -115,14 +115,20 @@ def replicated(x, mesh: DeviceMesh):
 
 
 def psum(x, mesh: DeviceMesh, axis: str = KF_AXIS):
-    """Sum of `x` over the ranks of `axis` (a new tensor on every rank)."""
+    """Sum of `x` over the ranks of `axis` (a new tensor on every rank).
+
+    Capturable in a CUDA graph once the group has run a collective on this
+    device (NCCL makes its communicator at the first one): the copy comes
+    from the graph's pool, and the all-reduce waits on nothing on the host,
+    so ProcessGroupNCCL's stream fork and join become graph edges."""
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
     return out
 
 
 def pmax(x, mesh: DeviceMesh, axis: str = KF_AXIS):
-    """Elementwise maximum of `x` over the ranks of `axis`."""
+    """Elementwise maximum of `x` over the ranks of `axis`; capturable as
+    `psum` is."""
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return out

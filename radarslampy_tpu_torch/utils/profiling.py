@@ -13,8 +13,10 @@ a `record_function` range "slam_step.<stage>"): `step_profile` gives each
 range's host and device time per step and the device's busy time over the
 steps' window, `device_busy_us` the union of the device activity among a
 trace's events, `lost_launches` the host's launches whose device events a
-trace lacks.  `card_line` is the card's name and power limit as
-`nvidia-smi` gives them, to be written beside every time taken on it.
+trace lacks, `collective_trace` the all-reduces and graph replays of a
+trace and the NCCL kernels each launched.  `card_line` is the card's name
+and power limit as `nvidia-smi` gives them, to be written beside every time
+taken on it.
 """
 
 from __future__ import annotations
@@ -172,6 +174,33 @@ def lost_launches(events, t0=float("-inf")) -> int:
     return sum(1 for e in events if e.device_type == DeviceType.CPU
                and e.name in LAUNCH_CALLS and e.time_range.start >= t0
                and e.id not in on_device)
+
+
+def collective_trace(events) -> dict:
+    """What a trace of all-reduces and CUDA graph replays holds: the
+    all-reduce calls made on the host ("c10d::allreduce_" ops, captured ones
+    included), the replays ("cudaGraphLaunch" calls), the device's kernels and
+    copies split into those the replays launched (a replay's kernels carry
+    its cudaGraphLaunch's correlation id) and the rest, the NCCL all-reduce
+    kernels (names from "nccl" holding "allreduce", user annotations left
+    out) of each, their names, and the replays whose device events the trace
+    lacks."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    replays = {e.id for e in host if e.name == "cudaGraphLaunch"}
+    device = [e for e in events if e.device_type != DeviceType.CPU
+              and not getattr(e, "is_user_annotation", False)]
+    replayed = [e for e in device if e.id in replays]
+    nccl = [e for e in device if e.name.lower().startswith("nccl")
+            and "allreduce" in e.name.lower()]
+    return dict(allreduce_calls=sum(1 for e in host if e.name == "c10d::allreduce_"),
+                replays=len(replays), replayed_events=len(replayed),
+                eager_events=len(device) - len(replayed),
+                replayed_nccl=sum(1 for e in nccl if e.id in replays),
+                eager_nccl=sum(1 for e in nccl if e.id not in replays),
+                nccl_names=sorted(Counter(e.name for e in nccl).items()),
+                replays_without_events=len(replays - {e.id for e in replayed}))
 
 
 def device_busy_us(events, t0=float("-inf"), t1=float("inf"), skip=lambda e: False) -> float:

@@ -25,7 +25,7 @@ from radarslampy_tpu_torch.ops.cuda import doh_cuda
 from radarslampy_tpu_torch.sim import fakedata as fd
 from radarslampy_tpu_torch.utils.checkpoint import state_leaves, states_equal
 from tests.test_torch_batch_odometry import CFG_KW
-from tests.test_torch_step_graph import HOST_DATA_OPS, SYNC_OPS, Forbid
+from tests.torch_host_reads import HOST_DATA_OPS, SYNC_OPS, Forbid
 
 # The suite runs in several pytest-xdist worker processes on one host; one
 # intra-op thread per worker keeps torch from oversubscribing its cores.

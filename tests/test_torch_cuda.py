@@ -161,6 +161,98 @@ def test_pcg_graph_replay_matches_eager_sweeps_and_the_cpu(cuda):
     assert float(d[:2].max()) <= 1e-3 and float(d[2]) <= 1e-4
 
 
+def _line_ba_problem(M, L, noise, pose_noise, seed):
+    """Poses on a line 5 m apart, each landmark seen by 3 consecutive poses
+    near it (tests/test_ba.py's problem, built here without JAX, with views
+    that chain the poses, so that PCG needs many sweeps)."""
+    import numpy as np
+
+    from radarslampy_tpu_torch.models.ba import BAProblem
+
+    rng = np.random.default_rng(seed)
+    gt = np.stack([np.arange(M) * 5.0, np.zeros(M), rng.uniform(-0.3, 0.3, M)], 1)
+    first = rng.integers(0, M - 2, L)
+    lms = np.stack([first * 5.0 + rng.uniform(-5, 15, L), rng.uniform(-30, 30, L)], 1)
+    obs_pose = (first[:, None] + np.arange(3)).reshape(-1)
+    obs_lm = np.repeat(np.arange(L), 3)
+    c, s = np.cos(gt[obs_pose, 2]), np.sin(gt[obs_pose, 2])
+    d = lms[obs_lm] - gt[obs_pose, :2]
+    xy = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]], 1)
+    xy += rng.normal(0, noise, xy.shape)
+    init = gt + rng.normal(0, pose_noise, gt.shape)
+    init[0] = gt[0]
+    init_lms = lms + rng.normal(0, pose_noise * 2 + 0.01, lms.shape)
+    t = torch.from_numpy
+    return BAProblem(poses=t(init.astype(np.float32)), pose_mask=torch.ones(M, dtype=torch.bool),
+                     landmarks=t(init_lms.astype(np.float32)),
+                     lm_mask=torch.ones(L, dtype=torch.bool), obs_pose=t(obs_pose),
+                     obs_lm=t(obs_lm), obs_xy=t(xy.astype(np.float32)),
+                     obs_mask=torch.ones(3 * L, dtype=torch.bool))
+
+
+def _ranks_module():
+    """tests/torch_dist_ranks.py loaded from its path: where another package
+    named `tests` is installed (the card machine has one), `tests.` does not
+    reach this directory."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_ranks", Path(__file__).with_name("torch_dist_ranks.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_sharded_pcg_captures_its_all_reduce(cuda, tmp_path, world):
+    """NCCL ranks, one card each, through the spawner: the sharded PCG pose
+    graph (a 200-pose ring) and BA (100 poses, 400 landmarks) replay their
+    sweeps from a CUDA graph holding the all-reduce, equal bit for bit to
+    their eager sharded sweeps; at one rank also to the single-device
+    solves, at more within tests/test_torch_parallel.py's bounds.  Traced
+    (one LM iteration, 4 checks' sweeps), the replays launch as many NCCL
+    kernels a sweep as the eager all-reduces launch a call, and each
+    replayed sweep holds one all-reduce when NCCL launches one a call (more
+    than one rank; a one-rank in-place sum launches nothing)."""
+    from radarslampy_tpu_torch.models.posegraph import SWEEPS_PER_CHECK
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards")
+    meshes = {1: ("w1",), 4: ("w4", "w2")}[world]
+    inputs = dict(cfg=dict(pg_iterations=3), meshes=meshes,
+                  ring=tuple(_ring_graph(200, 40.0, 0.02, 0)),
+                  ba=tuple(_line_ba_problem(100, 400, 0.02, 0.3, 5)))
+    ranks = _ranks_module().spawn("sharded_cg_card", world, tmp_path, inputs, 600,
+                                  backend="nccl")
+    for mesh in meshes:
+        out = ranks[0][mesh]
+        for solver in ("pg", "ba"):
+            cap, eager, single = (out[solver, k] for k in ("captured", "eager", "single"))
+            for a, b in zip(cap[:-1], eager[:-1], strict=True):
+                assert torch.equal(a, b), (mesh, solver)
+            assert cap[-1]["cg_sweeps"] == eager[-1]["cg_sweeps"] > 0
+            assert cap[-1]["cg_captures"] > 0 and eager[-1]["cg_captures"] == 0
+            poses, cost = cap[0], cap[-2]
+            if mesh == "w1":
+                for a, b in zip(cap[:-1], single[:-1], strict=True):
+                    assert torch.equal(a, b), (mesh, solver)
+            else:  # tests/test_torch_parallel.py's bounds
+                assert float((poses - single[0]).abs().max()) <= 1e-3, (mesh, solver)
+                assert abs(float(cost) - float(single[-2])) <= 1e-3 * abs(float(single[-2])) + 1e-4
+        (cap_t, cap_pg, cap_ba), (eager_t, *_) = out["trace", True], out["trace", False]
+        replays = cap_pg["cg_batches"] + cap_ba["cg_batches"]
+        print(f"{mesh} on {torch.cuda.get_device_name(0)}: captured trace {cap_t}, "
+              f"eager trace {eager_t}; sweeps {out['pg', 'captured'][-1]['cg_sweeps']} + "
+              f"{out['ba', 'captured'][-1]['cg_sweeps']}")
+        per_call = eager_t["eager_nccl"] / eager_t["allreduce_calls"]
+        assert cap_t["replays"] == replays > 0 and cap_t["replays_without_events"] == 0
+        assert cap_t["replayed_nccl"] == per_call * SWEEPS_PER_CHECK * replays, (cap_t, eager_t)
+        assert cap_t["eager_nccl"] + cap_t["replayed_nccl"] == eager_t["eager_nccl"]
+        if mesh != "w1":
+            assert per_call == 1
+
+
 # The small grid of tests/test_torch_render_device.py
 RENDER_KW = dict(cart_size=512, cart_downsample=8, n_candidates=256, anms_top_k=100,
                  k_max=128, max_keyframes=128)

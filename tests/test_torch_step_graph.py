@@ -14,7 +14,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from radarslampy_tpu.config import SlamConfig as JaxConfig
 from radarslampy_tpu.models import frontend as JF
@@ -23,6 +22,7 @@ from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.interop import frame_maps_from_numpy, slam_state_from_numpy
 from radarslampy_tpu_torch.models import frontend as TF
 from radarslampy_tpu_torch.utils.checkpoint import state_leaves, states_equal
+from tests.torch_host_reads import HOST_DATA_OPS, SYNC_OPS, Forbid
 
 # The suite runs in several pytest-xdist worker processes on one host; one
 # intra-op thread per worker keeps torch from oversubscribing its cores.
@@ -34,24 +34,6 @@ COAST_AT = 7        # frame index of the scan from off the track
 N_FRAMES = 9
 KINDS = {"plain": (False, False), "keyframe": (True, False),
          "keyframe_retrack": (True, True)}
-
-# What a step must not do: read a value to the host (`.item()`, `bool()`,
-# `.tolist()` all end in _local_scalar_dense), take a shape from data, or
-# make a tensor from host data (torch.tensor / as_tensor of numpy: on the
-# card a copy from the host, which a CUDA graph cannot hold).
-SYNC_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select")
-HOST_DATA_OPS = ("aten.lift_fresh",)
-
-
-class Forbid(TorchDispatchMode):
-    def __init__(self, names):
-        super().__init__()
-        self.names = names
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if any(str(func).startswith(n) for n in self.names):
-            raise AssertionError(f"{func} inside the step")
-        return func(*args, **(kwargs or {}))
 
 
 def u8(scan):
