@@ -41,14 +41,19 @@ Phases, one line each (elapsed seconds in brackets):
      start (40 frames a turn, 2.2 m chords), fed through `frame_source`: at
      least one loop closed online and one post hoc, the keyframe error
      against GT of the map, the pose graph and BA, fps, the post-hoc pass
-     timed alone on the host, DoH launches; a second run equal to the first
-     bit for bit on every RunResult array and state leaf; (b) the solvers on
+     timed alone on the host with its dense LM captured (one CUDA graph of an
+     LM iteration, replayed) and eager (`replay=False`), equal bit for bit,
+     DoH launches; a second run equal to the first bit for bit on every
+     RunResult array and state leaf; (b) the solvers on
      a synthetic map in `SlamConfig()`'s shapes (capacity 4096, K 256, P 512,
      16 x 80 descriptors) with 1,100 live keyframes and 12 planted revisits:
      `close_loops` ("both"), the pose graph ("auto": PCG at 1,280 rows), BA
      ("auto": PCG at 1,100 poses) and two online passes over the map grown to
      600 and then 1,100 keyframes, each timed (synchronised host ms) with its
      candidates, loops, CG sweeps and mean keyframe error before and after;
+     the 600-keyframe pass (a dense pose graph at 1,024 rows) runs again with
+     its dense LM eager: equal bit for bit, one capture and `pg_iterations` -
+     1 replays, with both ms and the capture ms;
      (c) `close_loops`, the dense pose graph and dense BA on a small map on
      the card and on the CPU: candidates, loop edges and `ok` flags equal,
      poses within the CPU parity tests' bounds;
@@ -68,9 +73,12 @@ Phases, one line each (elapsed seconds in brackets):
   9. the distributed back-end (`parallel/`) in a world of one rank joined
      through `parallel.launch.initialize` (NCCL), with the NCCL version and
      the NCCL variables set: (a) the sharded pose graph, dense on phase 7's
-     loop graph (equal bit for bit to the single-device solve) and "gather"
+     loop graph (equal bit for bit to the single-device solve; both captured
+     and eager, each captured run equal bit for bit to its eager one, with
+     their ms, captures, replays and capture ms) and "gather"
      and "pcg" on the 1,280-row graph of the 1,100-keyframe map at 3 LM
-     iterations; (b) the sharded BA, dense on the loop's problem and PCG on
+     iterations; (b) the sharded BA, dense on the loop's problem (captured and
+     eager, single-device and sharded, as in (a)) and PCG on
      the 1,100-pose problem at 3 LM iterations, each within 1e-3 m and a
      cost rtol of 1e-3 of the single-device solvers; the sharded PCG pose
      graph and BA (their sweeps replayed from a CUDA graph holding the
@@ -144,6 +152,8 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import json
 import os
 import re
@@ -485,6 +495,34 @@ def run_arrays(res):
     return out + [x.cpu().numpy() for x in state_leaves(res.final_state)]
 
 
+@contextlib.contextmanager
+def dense_lm_eager():
+    """Inside: the driver's post-hoc pass (`models/system.py`) and the online
+    pass (`models/loopclosure.incremental_backend`) call the pose graph and BA
+    with `replay=False`, their dense LM iterations eager, for timing against
+    the captured ones on the same inputs."""
+    from radarslampy_tpu_torch.models import loopclosure, system
+
+    saved = [(m, name, getattr(m, name)) for m, name in
+             ((system, "optimize_pose_graph"), (system, "optimize_ba"),
+              (loopclosure, "optimize_pose_graph"))]
+    for m, name, fn in saved:
+        setattr(m, name, functools.partial(fn, replay=False))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def lm_stats(st, prefix=""):
+    """`lm_iterations`' counts in `st`, named for a row (capture in ms)."""
+    return {f"{prefix}lm_captures": st.get("lm_captures", 0),
+            f"{prefix}lm_replays": st.get("lm_replays", 0),
+            f"{prefix}lm_capture_ms": st.get("lm_capture_s", 0.0) * 1e3,
+            f"{prefix}lm_replay_ms": st.get("lm_replay_s", 0.0) * 1e3}
+
+
 def backend_driver(torch, cfg, dev, tmp):
     """Phase 7 (a) on `dev`: the driver with the back-end on, over the
     rendered loop, twice; returns what main() checks and prints."""
@@ -505,12 +543,12 @@ def backend_driver(torch, cfg, dev, tmp):
     wall_s = time.time() - t
     launches = doh_cuda.launches
     second = RadarSlamSystem("loop", tmp, cfg, device=dev).run(frame_source=source, **kw)
-    # the post-hoc pass alone, timed, on the final state of the first run
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    again = system.optimize_map(first.final_state, ba=True)
-    torch.cuda.synchronize()
-    posthoc_ms = (time.perf_counter() - t) * 1e3
+    # the post-hoc pass alone, timed, on the final state of the first run:
+    # its dense LM captured (as the driver runs it), then eager
+    again, posthoc_ms = timed(torch, lambda: system.optimize_map(first.final_state, ba=True))
+    with dense_lm_eager():
+        eager, posthoc_eager_ms = timed(
+            torch, lambda: system.optimize_map(first.final_state, ba=True))
     M = first.n_keyframes
     gt_kf = gt[first.final_state.map.frame_ids[:M].cpu().numpy()]
     errors = (kf_error(first.final_state.map.poses[:M].cpu().numpy(), gt_kf),
@@ -519,8 +557,10 @@ def backend_driver(torch, cfg, dev, tmp):
     same_posthoc = (np.array_equal(again[0], first.kf_poses_optimized)
                     and np.array_equal(again[3], first.kf_poses_ba)
                     and again[1] == first.n_loop_closures)
+    same_eager = all(np.array_equal(a, b) for a, b in zip(again, eager, strict=True))
     return dict(res=first, wall_s=wall_s, launches=launches, posthoc_ms=posthoc_ms,
-                errors=errors, same=same, same_posthoc=same_posthoc)
+                posthoc_eager_ms=posthoc_eager_ms, errors=errors, same=same,
+                same_posthoc=same_posthoc, same_posthoc_eager=same_eager)
 
 
 def revisit_map(torch, cfg, n_base, n_planted, dev, seed, gap=40, drift_m=4.0):
@@ -626,6 +666,8 @@ def solver_stages(torch, cfg, m, gt):
                                                           trim_map_state)
     from radarslampy_tpu_torch.models.posegraph import optimize_pose_graph
 
+    import numpy as np
+
     M = int(m.cursor)
     before = kf_error(m.poses[:M].cpu().numpy(), gt)
     mt = trim_map_state(m)
@@ -668,13 +710,22 @@ def solver_stages(torch, cfg, m, gt):
                 for f in ("poses", "feat_world")}))
         err0 = kf_error(state.map.poses[:n].cpu().numpy(), gt[:n])
         inc = {}
+        state_in, bs_in = state, bs
         (state, n_new, cost, bs), ms = timed(
-            torch, lambda: incremental_backend(state, cfg, backend_state=bs, stats=inc))
-        stages.append(dict(stage=f"online_pass_{n}", ms=ms, candidates=inc["candidates"],
-                           loops=n_new, edges=len(bs.edges_ij), rows=1024 * -(-n // 1024),
-                           solver=("pcg" if inc.get("cg_sweeps") else "dense") if n_new else None,
-                           cg_sweeps=inc.get("cg_sweeps", 0), err_before=err0,
-                           err_after=kf_error(state.map.poses[:n].cpu().numpy(), gt[:n])))
+            torch, lambda: incremental_backend(state_in, cfg, backend_state=bs_in, stats=inc))
+        row = dict(stage=f"online_pass_{n}", ms=ms, candidates=inc["candidates"],
+                   loops=n_new, edges=len(bs.edges_ij), rows=1024 * -(-n // 1024),
+                   solver=("pcg" if inc.get("cg_sweeps") else "dense") if n_new else None,
+                   cg_sweeps=inc.get("cg_sweeps", 0), err_before=err0,
+                   err_after=kf_error(state.map.poses[:n].cpu().numpy(), gt[:n]))
+        if row["solver"] == "dense":   # the same pass again, its dense LM eager
+            with dense_lm_eager():
+                (e_state, e_new, e_cost, e_bs), row["eager_ms"] = timed(
+                    torch, lambda: incremental_backend(state_in, cfg, backend_state=bs_in))
+            row.update(lm_stats(inc), equal_eager=bool(
+                torch.equal(e_state.map.poses, state.map.poses) and e_cost == cost
+                and e_new == n_new and np.array_equal(e_bs.edges_ij, bs.edges_ij)))
+        stages.append(row)
     return stages, dict(map=mt, graph=graph, problem=problem)
 
 
@@ -1056,19 +1107,52 @@ def parallel_solvers(torch, cfg, mesh, loop_map, scale):
     from radarslampy_tpu_torch.models.posegraph import SWEEPS_PER_CHECK, optimize_pose_graph
     from radarslampy_tpu_torch.parallel.dist_ba import optimize_ba_sharded
     from radarslampy_tpu_torch.parallel.dist_posegraph import optimize_pose_graph_sharded
-    from radarslampy_tpu_torch.parallel.mesh import axis_size
+    from radarslampy_tpu_torch.parallel.mesh import axis_size, psum
 
+    # NCCL sets up its communicator at the group's first collective (about
+    # half a second): here, outside the timed solves
+    psum(torch.zeros(1, device=mesh.device_type), mesh)
+    torch.cuda.synchronize()
     out = []
+
+    def dense_runs(single, sharded):
+        """`single(replay, stats)` and `sharded(replay, stats)` captured, then
+        eager -> (their results, ms and stats, and the row's dense keys:
+        each pair equal bit for bit, each captured once and replayed
+        `pg_iterations` - 1 times, the eager runs never)."""
+        runs = {}
+        for name, solve in (("single", single), ("sharded", sharded)):
+            for replay in (True, False):
+                st = {}
+                res, ms = timed(torch, lambda: solve(replay, st))
+                runs[name, replay] = (res, ms, st)
+        n = cfg.pg_iterations
+
+        def eq(a, b):
+            return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+        row = dict(ms=runs["sharded", True][1], eager_ms=runs["sharded", False][1],
+                   single_ms=runs["single", True][1], single_eager_ms=runs["single", False][1],
+                   **lm_stats(runs["sharded", True][2]),
+                   **lm_stats(runs["single", True][2], "single_"),
+                   equal_eager=eq(runs["sharded", True][0], runs["sharded", False][0]),
+                   single_equal_eager=eq(runs["single", True][0], runs["single", False][0]))
+        lm_ok = (row["equal_eager"] and row["single_equal_eager"]
+                 and all(runs[k, True][2]["lm_captures"] == 1
+                         and runs[k, True][2]["lm_replays"] == n - 1
+                         and runs[k, False][2]["lm_captures"] == 0 for k in ("single", "sharded")))
+        return runs["single", True][0], runs["sharded", True][0], row, lm_ok
+
     g_loop, _ = close_loops(loop_map, cfg)
-    (rp, rc), ms_ref = timed(torch, lambda: optimize_pose_graph(g_loop, cfg, method="dense"))
-    (gp, gc), ms = timed(torch, lambda: optimize_pose_graph_sharded(g_loop, cfg, mesh, "dense"))
+    (rp, rc), (gp, gc), row, lm_ok = dense_runs(
+        lambda replay, st: optimize_pose_graph(g_loop, cfg, "dense", st, replay),
+        lambda replay, st: optimize_pose_graph_sharded(g_loop, cfg, mesh, "dense", st, replay))
     padded = g_loop.edges_ij.shape[0] % axis_size(mesh) != 0
     rel = float(((gp - rp).abs() / rp.abs().clamp(min=1e-30)).max())
     equal = torch.equal(gp, rp) and torch.equal(gc, rc)
     out.append(dict(part="a", solver="pose graph dense", rows=g_loop.poses.shape[0],
                     edges=g_loop.edges_ij.shape[0], padded=padded, equal=equal, max_rel=rel,
-                    ms=ms, single_ms=ms_ref,
-                    ok=equal or (padded and rel <= PAR_PAD_RTOL)))
+                    **row, ok=lm_ok and (equal or (padded and rel <= PAR_PAD_RTOL))))
 
     def per_sweep(ms, st):
         return ms / max(st["cg_sweeps"], 1)
@@ -1125,18 +1209,17 @@ def parallel_solvers(torch, cfg, mesh, loop_map, scale):
 
     M = int(loop_map.cursor)
     p_loop = build_ba_problem(reseed_map(loop_map, rp[:M].cpu().numpy()), min_views=2)
-    st, sm = {}, {}
-    (rpo, rl, rc), ms_ref = timed(torch, lambda: optimize_ba(p_loop, cfg, method="dense",
-                                                             stats=st))
-    (bpo, bl, bc), ms = timed(torch, lambda: optimize_ba_sharded(p_loop, cfg, mesh,
-                                                                 method="dense", stats=sm))
+    (rpo, rl, rc), (bpo, bl, bc), row, lm_ok = dense_runs(
+        lambda replay, st: optimize_ba(p_loop, cfg, method="dense", stats=st, replay=replay),
+        lambda replay, st: optimize_ba_sharded(p_loop, cfg, mesh, method="dense", stats=st,
+                                               replay=replay))
     L = rl.shape[0]
     d = pose_diff(bpo, rpo) + [float((bl[:L] - rl).abs().max())]
     out.append(dict(part="b", solver="BA dense (loop)", poses=p_loop.poses.shape[0],
                     landmarks=int(p_loop.lm_mask.sum()), observations=int(p_loop.obs_mask.sum()),
                     max_diff=d, cost=float(bc), single_cost=float(rc),
-                    equal=torch.equal(bpo, rpo) and torch.equal(bl[:L], rl), ms=ms,
-                    single_ms=ms_ref, ok=max(d) <= PAR_M and cost_close(bc, rc)))
+                    equal=torch.equal(bpo, rpo) and torch.equal(bl[:L], rl), **row,
+                    ok=lm_ok and max(d) <= PAR_M and cost_close(bc, rc)))
     p_big = scale["problem"]
     st, sm, se = {}, {}, {}
     (rpo, rl, rc), ms_ref = timed(torch, lambda: optimize_ba(p_big, cfg3, method="pcg",
@@ -2378,11 +2461,14 @@ def main() -> int:
         f"{r.posegraph_cost:.6g}, BA cost {r.ba_cost:.6g} over {len(r.landmarks_ba)} landmarks; "
         f"keyframe error against GT: map {bk['errors'][0]:.4f} m, pose graph "
         f"{bk['errors'][1]:.4f} m, BA {bk['errors'][2]:.4f} m; post-hoc pass alone "
-        f"{bk['posthoc_ms']:.1f} ms (host, synchronised); doh launches {bk['launches']}")
+        f"{bk['posthoc_ms']:.1f} ms with its dense LM captured, {bk['posthoc_eager_ms']:.1f} "
+        f"ms eager (host, synchronised); doh launches {bk['launches']}")
     log(f"backend driver: two runs equal bit for bit on every RunResult array: {bk['same']}; "
-        f"the post-hoc pass again equal: {bk['same_posthoc']}")
-    if not (bk["same"] and bk["same_posthoc"]):
-        raise AssertionError("the back-end driver is not deterministic on the card")
+        f"the post-hoc pass again equal: {bk['same_posthoc']}; the post-hoc pass with its "
+        f"dense LM eager equal: {bk['same_posthoc_eager']}")
+    if not (bk["same"] and bk["same_posthoc"] and bk["same_posthoc_eager"]):
+        raise AssertionError("the back-end driver is not deterministic on the card, or its "
+                             "captured dense LM differs from the eager one")
     if not (r.n_online_loops >= 1 and r.n_loop_closures >= 1 and bk["launches"] >= 1
             and all(np.isfinite(bk["errors"]))):
         raise AssertionError("the back-end driver closed no loop online or post hoc, or "
@@ -2402,6 +2488,11 @@ def main() -> int:
             and by["ba"]["solver"] == "pcg" and by["pose_graph"]["cg_sweeps"] > 0
             and by[f"online_pass_{int(big.cursor)}"]["solver"] == "pcg"):
         raise AssertionError(f"scale stages did not close loops or run both PCG solvers: {stages}")
+    first = by[f"online_pass_{SCALE_STAGE}"]
+    if not (first["solver"] == "dense" and first["equal_eager"] and first["lm_captures"] == 1
+            and first["lm_replays"] == cfg.pg_iterations - 1):
+        raise AssertionError(f"the {SCALE_STAGE}-keyframe online pass did not run its dense "
+                             f"LM captured, or differs from the eager one: {first}")
 
     # (c) the card against the CPU at a small config
     cvc = backend_card_vs_cpu(torch, SlamConfig(**dict(SMALL, max_keyframes=256, k_max=64,

@@ -5,7 +5,9 @@ with the landmark 2x2 blocks marginalised in closed form, leaving a reduced
 [3M, 3M] pose system:
 
   * "dense": the reduced system assembled (cross-pose fill-in enumerated up to
-    `max_views_per_landmark` views per landmark) and solved by Cholesky;
+    `max_views_per_landmark` views per landmark) and solved by Cholesky; on
+    the card its LM iterations after the first are replayed from a CUDA
+    graph of one iteration (`posegraph.lm_iterations`);
   * "pcg": matrix-free, the reduced operator applied by per-observation
     gathers and scatter-adds and solved by block-Jacobi PCG (exact for any
     number of views);
@@ -28,9 +30,10 @@ import torch
 
 from radarslampy_tpu_torch.config import SlamConfig
 from radarslampy_tpu_torch.models.frontend import MapState
-from radarslampy_tpu_torch.models.posegraph import (_identity, _lm_update, _sweeps_per_check,
-                                                    _wrap_heading, cholesky_solve_pos,
-                                                    conjugate_gradient)
+from radarslampy_tpu_torch.models.posegraph import (_identity, _lm_counts, _lm_update,
+                                                    _sweeps_per_check, _wrap_heading,
+                                                    cholesky_solve_pos, conjugate_gradient,
+                                                    lm_iterations)
 from radarslampy_tpu_torch.ops.scatter import scatter_add
 
 
@@ -237,10 +240,16 @@ def schur_reduced_system(poses, landmarks, p: BAProblem, view_table, hd, lam,
     return Hb.permute(0, 2, 1, 3).reshape(3 * M, 3 * M), bs, Hinv, bl, U
 
 
-def solve_reduced(H, bs, lam):
-    """Anchor pose 0, damp, Cholesky-solve the reduced pose system."""
-    anchor = torch.zeros(H.shape[0], dtype=H.dtype, device=H.device)
+def reduced_anchor(M: int, dtype, device):
+    """The [3M] diagonal that anchors pose 0 in the reduced system."""
+    anchor = torch.zeros(3 * M, dtype=dtype, device=device)
     anchor[:3] = 1e8
+    return anchor
+
+
+def solve_reduced(H, bs, lam, anchor):
+    """Anchor pose 0 (`reduced_anchor`), damp, Cholesky-solve the reduced
+    pose system."""
     A = H + torch.diag(anchor + lam * (torch.diagonal(H) + 1e-9))
     return -cholesky_solve_pos(A, bs.reshape(-1)).reshape(-1, 3)
 
@@ -263,38 +272,59 @@ def _accept(poses, landmarks, lam, cost, delta_p, delta_l, p: BAProblem, hd, red
 
 
 def optimize_ba(p: BAProblem, cfg: SlamConfig, max_views_per_landmark: int = 8,
-                method: str = "auto", stats=None):
-    """Fixed-budget LM bundle adjustment -> (poses, landmarks, cost).
-    `stats`, when a dict, receives "cg_sweeps" (0 for the dense solver)."""
+                method: str = "auto", stats=None, replay: bool = True):
+    """Fixed-budget LM bundle adjustment -> (poses, landmarks, cost).  On the
+    card the dense LM iterations and the PCG sweeps are replayed from CUDA
+    graphs; `replay` False runs them eagerly (the same bits).  `stats`, when
+    a dict, receives "cg_sweeps" (0 for the dense solver) and the chosen
+    solver's counts of its graphs ("lm_*" or "cg_*")."""
     if method == "auto":
         method = "dense" if p.poses.shape[0] <= 512 else "pcg"
     if method == "pcg":
-        return _optimize_ba_pcg(p, cfg, stats=stats)
+        return _optimize_ba_pcg(p, cfg, stats=stats, replay=replay)
     if method != "dense":
         raise ValueError(f"method must be dense, pcg or auto, got {method!r}")
     if stats is not None:
         stats["cg_sweeps"] = 0
-    return _optimize_ba_dense(p, cfg, max_views_per_landmark)
+    return _optimize_ba_dense(p, cfg, max_views_per_landmark, stats=stats, replay=replay)
+
+
+def ba_lm_step(p: BAProblem, view_table, anchor, hd, carry, reduce_fn=None):
+    """One dense Schur LM iteration: carry (poses, landmarks, lam, cost) ->
+    the carry after it.  `anchor` is `reduced_anchor`'s; with `p`'s landmarks
+    (and their observations) split over ranks, `reduce_fn` sums the reduced
+    system and the cost over them (identity by default); the landmark
+    back-substitution stays local.  This is the body that
+    `posegraph.lm_iterations` captures."""
+    red = reduce_fn or _identity
+    poses, landmarks, lam, cost = carry
+    H, bs, Hinv, bl, U = schur_reduced_system(poses, landmarks, p, view_table, hd, lam)
+    delta_p = solve_reduced(red(H), red(bs), lam, anchor)
+    delta_l = back_substitute_landmarks(Hinv, bl, U, delta_p, p)
+    return _accept(poses, landmarks, lam, cost, delta_p, delta_l, p, hd, red)
 
 
 def _optimize_ba_dense(p: BAProblem, cfg: SlamConfig, max_views_per_landmark: int,
-                       reduce_fn=None):
-    """Dense Schur LM.  With `p`'s landmarks (and their observations) split
-    over ranks (parallel/dist_ba.py), `reduce_fn` sums the reduced system and
-    the costs over them; landmark back-substitution stays local.  Defaults to
-    the identity."""
+                       reduce_fn=None, replay: bool = True, stats=None):
+    """Dense Schur LM: `cfg.pg_iterations` calls of `ba_lm_step` through
+    `posegraph.lm_iterations` (replayed from a CUDA graph on the card unless
+    `replay` is False).  With `p`'s landmarks split over ranks
+    (parallel/dist_ba.py), `reduce_fn` sums the reduced system and the costs
+    over them; defaults to the identity.  `stats`, when a dict, receives
+    `lm_iterations`' "lm_*" keys."""
     red = reduce_fn or _identity
     hd = cfg.pg_huber_delta
     view_table = build_view_table(p, max_views_per_landmark)
-    poses, landmarks = p.poses, p.landmarks
-    lam = torch.tensor(1e-3, dtype=poses.dtype, device=poses.device)
-    cost = red(ba_cost(poses, landmarks, p, hd))
-    for _ in range(cfg.pg_iterations):
-        H, bs, Hinv, bl, U = schur_reduced_system(poses, landmarks, p, view_table, hd, lam)
-        delta_p = solve_reduced(red(H), red(bs), lam)
-        delta_l = back_substitute_landmarks(Hinv, bl, U, delta_p, p)
-        poses, landmarks, lam, cost = _accept(poses, landmarks, lam, cost, delta_p,
-                                              delta_l, p, hd, red)
+    anchor = reduced_anchor(p.poses.shape[0], p.poses.dtype, p.poses.device)
+    lam = torch.tensor(1e-3, dtype=p.poses.dtype, device=p.poses.device)
+    counts = _lm_counts()
+    carry = lm_iterations(
+        lambda c: ba_lm_step(p, view_table, anchor, hd, c, reduce_fn),
+        (p.poses, p.landmarks, lam, red(ba_cost(p.poses, p.landmarks, p, hd))),
+        cfg.pg_iterations, replay, counts)
+    if stats is not None:
+        stats.update(counts)
+    poses, landmarks, _, cost = carry
     return poses, landmarks, cost
 
 

@@ -435,7 +435,9 @@ def incremental_backend(state, cfg: SlamConfig, method: str | None = None,
     current poses.  The map is padded to a multiple of 1024 rows, so the
     solver's choice moves only every ~1k keyframes.  The state is returned
     unchanged when no new loop verifies.  `stats`, when a dict, receives
-    "candidates" (verified this pass) and the solver's "cg_sweeps"."""
+    "candidates" (verified this pass) and, when the pose graph is solved,
+    `optimize_pose_graph`'s keys: "cg_sweeps" and the counts of the
+    solver's CUDA graphs ("lm_*" for the dense LM, "cg_*" for the PCG)."""
     bs = backend_state if backend_state is not None else BackendState()
     M = int(state.map.cursor)
     if M < 3 or M <= bs.prev_cursor:

@@ -6,7 +6,10 @@ edge tensors with validity masks, Huber-robust edges whose delta is annealed
 
   * "dense": the [3M, 3M] normal matrix assembled by block scatter-add and
     solved by Cholesky (`torch.linalg.cholesky_ex` / `cholesky_solve` in place
-    of `jax.scipy.linalg.solve(..., assume_a="pos")`);
+    of `jax.scipy.linalg.solve(..., assume_a="pos")`); on the card its LM
+    iterations after the first are replayed from a CUDA graph of one
+    iteration (`lm_iterations`), the counterpart of the JAX package's
+    `lax.scan` under `jit`;
   * "pcg": matrix-free block-Jacobi preconditioned conjugate gradient, with
     the iterate sequence of the JAX package's host-driven slices.
   * "auto": dense when M <= 1024, else pcg.
@@ -132,11 +135,11 @@ def assemble_normal_equations(poses, g: PoseGraph, huber_delta):
     return H, _gradient(r, Ji, Jj, W, i, j, M).reshape(3 * M)
 
 
-def _gauge_and_mask(H, b, node_mask):
-    """H with a 1e8 anchor on the diagonal of node 0 and of dead nodes."""
-    fix = torch.where(node_mask, 0.0, 1e8).to(H.dtype)
+def _gauge_diag(node_mask, dtype):
+    """The [3M] diagonal added to H: a 1e8 anchor on node 0 and on dead nodes."""
+    fix = torch.where(node_mask, 0.0, 1e8).to(dtype)
     fix[0] += 1e8
-    return H + torch.diag(torch.repeat_interleave(fix, 3)), b
+    return torch.repeat_interleave(fix, 3)
 
 
 def graph_cost(poses, g: PoseGraph, huber_delta):
@@ -191,41 +194,119 @@ def cholesky_solve_pos(A, b):
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
-def optimize_pose_graph(g: PoseGraph, cfg: SlamConfig, method: str = "auto", stats=None):
+def optimize_pose_graph(g: PoseGraph, cfg: SlamConfig, method: str = "auto", stats=None,
+                        replay: bool = True):
     """Fixed-budget LM over the whole graph -> (poses [M, 3], final cost).
 
-    `stats`, when a dict, receives "cg_sweeps": the PCG sweeps summed over the
-    LM iterations (0 for the dense solver)."""
+    On the card the dense LM iterations and the PCG sweeps are replayed from
+    CUDA graphs; `replay` False runs them eagerly (the same bits).  `stats`,
+    when a dict, receives "cg_sweeps": the PCG sweeps summed over the LM
+    iterations (0 for the dense solver), and the chosen solver's counts of
+    its graphs (`lm_iterations`' "lm_*" keys, `conjugate_gradient`'s
+    "cg_*")."""
     if method == "auto":
         method = "dense" if g.poses.shape[0] <= 1024 else "pcg"
     if method == "pcg":
-        return _optimize_pose_graph_pcg(g, cfg, stats=stats)
+        return _optimize_pose_graph_pcg(g, cfg, stats=stats, replay=replay)
     if method != "dense":
         raise ValueError(f"method must be dense, pcg or auto, got {method!r}")
     if stats is not None:
         stats["cg_sweeps"] = 0
-    return _optimize_pose_graph_dense(g, cfg)
+    return _optimize_pose_graph_dense(g, cfg, stats=stats, replay=replay)
+
+
+def lm_iterations(body, carry, n: int, replay: bool = True, stats=None):
+    """`n` iterations of `body` (a tuple of device tensors -> the tuple after
+    one iteration) from `carry` -> the carry after them: the counterpart of
+    the JAX package's `lax.scan` of an LM step under `jit`.
+
+    Iteration 0 runs eagerly; it warms up what the body's calls set up at
+    their first use (cuSOLVER's handle and workspace, the caching allocator,
+    a collective's communicator).  On a CUDA carry with `replay` and n > 1,
+    one call of the body is then captured in a CUDA graph that writes its
+    result into the carry's buffers, and the graph is replayed n - 1 times
+    with no host read between replays: the same kernels on the same inputs,
+    so the bits of the eager loop.  With a collective in the body (the
+    sharded solvers' `reduce_fn`) the graph holds it, and every rank replays
+    n - 1 times.  The body reads nothing to the host and makes no tensor from
+    host data; the graph reads the other tensors the body closes over by
+    address, so the caller keeps them alive until this returns, and the graph
+    and its memory pool are freed when it does (after a device sync).  A
+    capture that fails raises.  `replay` False, or a carry on the CPU, runs
+    the n - 1 iterations eagerly.  `stats`, when a Counter, gets added to:
+    "lm_captures", "lm_capture_s" (host seconds capturing), "lm_replays" and
+    "lm_replay_s" (host seconds from the first replay until the device has
+    run the last)."""
+    stats = collections.Counter() if stats is None else stats
+    if n <= 0:
+        return carry
+    carry = tuple(body(carry))
+    if not (replay and n > 1 and carry[0].is_cuda):
+        for _ in range(n - 1):
+            carry = tuple(body(carry))
+        return carry
+    t = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for dst, src in zip(carry, body(carry), strict=True):
+            dst.copy_(src)
+    stats["lm_captures"] += 1
+    stats["lm_capture_s"] += time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(n - 1):
+        graph.replay()
+    torch.cuda.synchronize(carry[0].device)
+    stats["lm_replays"] += n - 1
+    stats["lm_replay_s"] += time.perf_counter() - t
+    return carry
+
+
+def _lm_counts():
+    return collections.Counter(lm_captures=0, lm_capture_s=0.0, lm_replays=0, lm_replay_s=0.0)
+
+
+def pose_graph_lm_step(g: PoseGraph, deltas, gauge, carry, reduce_fn=None):
+    """One dense LM iteration: carry (poses [M, 3], lam, k) -> the carry
+    after it.  Iteration k's Huber delta is read on the device from the GNC
+    schedule `deltas` [N]; `gauge` is `_gauge_diag`'s [3M] anchor.  With
+    `g`'s edges split over ranks, `reduce_fn` sums the edge-parallel costs, H
+    and b over them (identity by default).  This is the body that
+    `lm_iterations` captures."""
+    red = reduce_fn or _identity
+    poses, lam, k = carry
+    hd_k = deltas.index_select(0, k).reshape(())
+    # the Huber delta changes across iterations (GNC), so the acceptance
+    # test recomputes the current cost under this iteration's delta
+    cost = red(graph_cost(poses, g, hd_k))
+    H, b = assemble_normal_equations(poses, g, hd_k)
+    H = red(H) + torch.diag(gauge)
+    b = red(b)
+    A = H + lam * torch.diag(torch.diagonal(H) + 1e-9)
+    cand = _wrap_heading(poses - cholesky_solve_pos(A, b).reshape(-1, 3))
+    accept = red(graph_cost(cand, g, hd_k)) < cost
+    return torch.where(accept, cand, poses), _lm_update(accept, lam), k + 1
 
 
 def _optimize_pose_graph_dense(g: PoseGraph, cfg: SlamConfig, reduce_fn=None,
-                               reduce_max_fn=None):
-    """Dense LM.  With `g`'s edges split over ranks (parallel/dist_posegraph.py),
+                               reduce_max_fn=None, replay: bool = True, stats=None):
+    """Dense LM: `cfg.pg_iterations` calls of `pose_graph_lm_step` through
+    `lm_iterations` (replayed from a CUDA graph on the card unless `replay`
+    is False).  With `g`'s edges split over ranks (parallel/dist_posegraph.py),
     `reduce_fn` sums the edge-parallel H, b and costs over them and
-    `reduce_max_fn` takes the GNC start; both default to the identity."""
+    `reduce_max_fn` takes the GNC start; both default to the identity.
+    `stats`, when a dict, receives `lm_iterations`' "lm_*" keys."""
     red = reduce_fn or _identity
-    poses = g.poses
-    lam = torch.tensor(1e-4, dtype=poses.dtype, device=poses.device)
-    for hd_k in _huber_schedule(g, cfg, reduce_max_fn):
-        # the Huber delta changes across iterations (GNC), so the acceptance
-        # test recomputes the current cost under this iteration's delta
-        cost = red(graph_cost(poses, g, hd_k))
-        H, b = assemble_normal_equations(poses, g, hd_k)
-        H, b = _gauge_and_mask(red(H), red(b), g.node_mask)
-        A = H + lam * torch.diag(torch.diagonal(H) + 1e-9)
-        cand = _wrap_heading(poses - cholesky_solve_pos(A, b).reshape(-1, 3))
-        accept = red(graph_cost(cand, g, hd_k)) < cost
-        poses = torch.where(accept, cand, poses)
-        lam = _lm_update(accept, lam)
+    dev = g.poses.device
+    deltas = _huber_schedule(g, cfg, reduce_max_fn)
+    gauge = _gauge_diag(g.node_mask, g.poses.dtype)
+    counts = _lm_counts()
+    poses, _, _ = lm_iterations(
+        lambda carry: pose_graph_lm_step(g, deltas, gauge, carry, reduce_fn),
+        (g.poses, torch.tensor(1e-4, dtype=g.poses.dtype, device=dev),
+         torch.zeros((), dtype=torch.int64, device=dev)),
+        cfg.pg_iterations, replay, counts)
+    if stats is not None:
+        stats.update(counts)
     return poses, red(graph_cost(poses, g, cfg.pg_huber_delta))
 
 

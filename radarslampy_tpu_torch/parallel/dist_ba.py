@@ -9,7 +9,9 @@ back-substitution stays on the owning rank.  The landmarks are all-gathered
 once at the end, so every rank returns the same (poses, landmarks, cost).
 
   * "dense": per LM iteration the local [3M, 3M] reduced system and its
-    right-hand side, one `all_reduce` of each (O(M^2): small maps only);
+    right-hand side, one `all_reduce` of each (O(M^2): small maps only); on
+    the card the iterations after the first are replayed from a CUDA graph
+    of one iteration that holds its all-reduces;
   * "pcg":   matrix-free (`models/ba._optimize_ba_pcg` with `reduce_fn`):
     only [M, 3] and [M, 3, 3] arrays cross ranks; on the card its sweeps are
     replayed from a CUDA graph that holds their all-reduce;
@@ -84,22 +86,27 @@ def _local_problem(p: BAProblem, mesh: DeviceMesh) -> BAProblem:
 
 
 def optimize_ba_sharded(p: BAProblem, cfg: SlamConfig, mesh: DeviceMesh,
-                        max_views_per_landmark: int = 8, method: str = "auto", stats=None):
+                        max_views_per_landmark: int = 8, method: str = "auto", stats=None,
+                        replay: bool = True):
     """LM bundle adjustment with the landmarks split over the mesh's ``kf``
     ranks -> (poses [M, 3], landmarks [Lpad, 2], cost), the same on every
     rank; `Lpad` is L padded to a multiple of the axis size (the first L rows
-    are `p`'s landmarks).  `p` is the whole problem, on every rank.  `stats`,
-    when a dict, receives "cg_sweeps" (0 for the dense solver)."""
+    are `p`'s landmarks).  `p` is the whole problem, on every rank.  `replay`
+    False runs the solver's CUDA-graph replays eagerly.  `stats`, when a
+    dict, receives "cg_sweeps" (0 for the dense solver) and the solver's
+    counts of its graphs ("lm_*" or "cg_*")."""
     if method == "auto":
         method = "dense" if p.poses.shape[0] <= 512 else "pcg"
     local = _local_problem(p, mesh)
     red = lambda x: psum(x, mesh)  # noqa: E731
     if method == "pcg":
-        poses, lms, cost = _optimize_ba_pcg(local, cfg, stats=stats, reduce_fn=red)
+        poses, lms, cost = _optimize_ba_pcg(local, cfg, stats=stats, reduce_fn=red,
+                                            replay=replay)
     elif method == "dense":
         if stats is not None:
             stats["cg_sweeps"] = 0
-        poses, lms, cost = _optimize_ba_dense(local, cfg, max_views_per_landmark, reduce_fn=red)
+        poses, lms, cost = _optimize_ba_dense(local, cfg, max_views_per_landmark, reduce_fn=red,
+                                              replay=replay, stats=stats)
     else:
         raise ValueError(f"method must be dense, pcg or auto, got {method!r}")
     return poses, all_gather(lms, mesh), cost

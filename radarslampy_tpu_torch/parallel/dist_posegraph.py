@@ -9,7 +9,10 @@ the mesh's collectives:
   * "dense":  per LM iteration the local H [3M, 3M] and b [3M] of the edge
     block, one `all_reduce` of each, the damped Cholesky solve replicated;
     the costs are all-reduced, and the GNC start is a MAX over the blocks (a
-    sum would count it once per rank);
+    sum would count it once per rank); on the card the iterations after the
+    first are replayed from a CUDA graph of one iteration that holds its
+    all-reduces (`models/posegraph.lm_iterations`), the counterpart of the
+    JAX package's `jit(shard_map(...))` of its `lax.scan`;
   * "pcg":    matrix-free LM, one [M, 3] `all_reduce` per CG sweep (the
     `reduce_fn` hook); on the card its sweeps are replayed from a CUDA graph
     that holds the all-reduce (`models/posegraph.conjugate_gradient`), the
@@ -51,34 +54,36 @@ def _local_edges(g: PoseGraph, mesh: DeviceMesh) -> PoseGraph:
 
 
 def optimize_pose_graph_sharded(g: PoseGraph, cfg: SlamConfig, mesh: DeviceMesh,
-                                method: str = "auto", stats=None):
+                                method: str = "auto", stats=None, replay: bool = True):
     """LM pose-graph solve with the edges split over the mesh's ``kf`` ranks
     -> (poses [M, 3], final cost), the same on every rank.  `g` is the whole
-    graph, on every rank.  `stats`, when a dict, receives "cg_sweeps" (0 for
-    the dense solver)."""
+    graph, on every rank.  `replay` False runs the solver's CUDA-graph
+    replays eagerly.  `stats`, when a dict, receives "cg_sweeps" (0 for the
+    dense solver) and the solver's counts of its graphs ("lm_*" or "cg_*")."""
     if method == "auto":
         method = "dense" if g.poses.shape[0] <= 1024 else "gather"
     if method == "gather":
-        return _optimize_pose_graph_sharded_gather(g, cfg, mesh, stats)
+        return _optimize_pose_graph_sharded_gather(g, cfg, mesh, stats, replay)
     local = _local_edges(g, mesh)
     red = (lambda x: psum(x, mesh), lambda x: pmax(x, mesh))
     if method == "pcg":
         return _optimize_pose_graph_pcg(local, cfg, stats=stats, reduce_fn=red[0],
-                                        reduce_max_fn=red[1])
+                                        reduce_max_fn=red[1], replay=replay)
     if method != "dense":
         raise ValueError(f"method must be dense, pcg, gather or auto, got {method!r}")
     if stats is not None:
         stats["cg_sweeps"] = 0
-    return _optimize_pose_graph_dense(local, cfg, reduce_fn=red[0], reduce_max_fn=red[1])
+    return _optimize_pose_graph_dense(local, cfg, reduce_fn=red[0], reduce_max_fn=red[1],
+                                      replay=replay, stats=stats)
 
 
 def _optimize_pose_graph_sharded_gather(g: PoseGraph, cfg: SlamConfig, mesh: DeviceMesh,
-                                        stats=None):
+                                        stats=None, replay: bool = True):
     """Each rank's edge block all-gathered once, then the single-device
     matrix-free LM on every rank with no further collective."""
     local = _local_edges(g, mesh)
     full = local._replace(**{f: all_gather(getattr(local, f), mesh) for f in EDGE_FIELDS})
-    return _optimize_pose_graph_pcg(full, cfg, stats=stats)
+    return _optimize_pose_graph_pcg(full, cfg, stats=stats, replay=replay)
 
 
 def hvp_distributed(poses, g: PoseGraph, v, huber_delta, mesh: DeviceMesh, axis: str = KF_AXIS):

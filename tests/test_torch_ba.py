@@ -153,8 +153,8 @@ def test_ba_pcg_checked_every_sweep_equals_one_check(problems):
 
 def test_auto_picks_dense_up_to_512_poses(problems, monkeypatch):
     calls = []
-    monkeypatch.setattr(tba, "_optimize_ba_dense", lambda p, cfg, v: calls.append("dense"))
-    monkeypatch.setattr(tba, "_optimize_ba_pcg", lambda p, cfg, stats: calls.append("pcg"))
+    monkeypatch.setattr(tba, "_optimize_ba_dense", lambda p, cfg, v, **kw: calls.append("dense"))
+    monkeypatch.setattr(tba, "_optimize_ba_pcg", lambda p, cfg, **kw: calls.append("pcg"))
     _, tp = problems["line"]
     tba.optimize_ba(tp, SlamConfig())
     tba.optimize_ba(tp._replace(poses=torch.zeros(513, 3)), SlamConfig())

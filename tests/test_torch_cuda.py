@@ -253,6 +253,133 @@ def test_sharded_pcg_captures_its_all_reduce(cuda, tmp_path, world):
             assert per_call == 1
 
 
+def _dense_case(cuda, case):
+    """(solve(replay, stats) -> the solve's tensors, the LM iterations) for a
+    dense pose graph on a ring of 256 or 1,024 poses (1,024: the rows the
+    online pass pads its map to) or dense BA on 49 poses and 350 landmarks."""
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.models.ba import BAProblem, optimize_ba
+    from radarslampy_tpu_torch.models.posegraph import PoseGraph, optimize_pose_graph
+
+    cfg = SlamConfig()
+    if case == "ba":
+        p = BAProblem(*(x.to(cuda) for x in _line_ba_problem(49, 350, 0.02, 0.3, 5)))
+        return (lambda replay, st: optimize_ba(p, cfg, method="dense", stats=st,
+                                               replay=replay)), cfg.pg_iterations
+    M = {"pg256": 256, "pg1024": 1024}[case]
+    g = PoseGraph(*(x.to(cuda) for x in _ring_graph(M, 40.0, 0.02, 0)))
+    return (lambda replay, st: optimize_pose_graph(g, cfg, "dense", st, replay)), \
+        cfg.pg_iterations
+
+
+@pytest.mark.parametrize("case", ["pg256", "pg1024", "ba"])
+def test_dense_lm_graph_equals_the_eager_loop(cuda, case):
+    """The dense LM captured once and replayed `pg_iterations` - 1 times
+    gives the bits of the same iterations run eagerly (`replay=False`)."""
+    solve, n = _dense_case(cuda, case)
+    st, st_e = {}, {}
+    captured, eager = solve(True, st), solve(False, st_e)
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager, strict=True):
+        assert torch.equal(a, b), case
+    assert bool(torch.isfinite(captured[0]).all())
+    assert (st["lm_captures"], st["lm_replays"]) == (1, n - 1)
+    assert (st_e["lm_captures"], st_e["lm_replays"]) == (0, 0)
+    print(f"{case} on {torch.cuda.get_device_name(0)}: capture {st['lm_capture_s'] * 1e3:.1f} "
+          f"ms, {n - 1} replays {st['lm_replay_s'] * 1e3:.2f} ms")
+
+
+@pytest.mark.parametrize("case", ["pg1024", "ba"])
+def test_dense_lm_graph_frees_its_pool(cuda, case):
+    """Once a captured solve returns, the graph's private pool is released:
+    the memory allocated is what it was before the solve (a first solve
+    warms up the library workspaces, which stay)."""
+    import gc
+
+    solve, _ = _dense_case(cuda, case)
+    solve(True, {})
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = solve(True, {})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before, held
+
+
+def test_dense_lm_capture_that_reads_to_the_host_raises(cuda):
+    """A body that reads a value to the host cannot be captured: the driver
+    raises, after one eager iteration and the one call it tried to capture,
+    and runs no eager iteration in the graph's place."""
+    from radarslampy_tpu_torch.models.posegraph import lm_iterations
+
+    calls = []
+
+    def body(carry):
+        calls.append(1)
+        x, = carry
+        return (x * (2.0 if float(x.sum()) > 0 else 3.0),)
+
+    with pytest.raises(RuntimeError):
+        lm_iterations(body, (torch.ones(4, device=cuda),), 5)
+    torch.cuda.synchronize()
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_sharded_dense_lm_captures_its_all_reduce(cuda, tmp_path, world):
+    """NCCL ranks, one card each, through the spawner: the sharded dense pose
+    graph (a 256-pose ring) and BA (49 poses, 350 landmarks) captured once and
+    replayed, equal bit for bit to their eager runs (`replay=False`); at one
+    rank also to the single-device solves, at more within
+    tests/test_torch_parallel.py's bounds.  Traced at 3 LM iterations, each
+    replay launches one NCCL all-reduce kernel for each all-reduce of the body
+    (the pose graph's cost, H, b and candidate cost; BA's H, right-hand side
+    and candidate cost) when NCCL launches one a call (more than one rank; a
+    one-rank in-place sum launches nothing), and the windows launch the same
+    NCCL kernels captured and eager."""
+    from radarslampy_tpu_torch.config import SlamConfig
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards")
+    meshes = {1: ("w1",), 4: ("w4", "w2")}[world]
+    trace_n, allreduces = 3, {"pg": 4, "ba": 3}
+    inputs = dict(cfg={}, meshes=meshes, trace_iterations=trace_n,
+                  ring=tuple(_ring_graph(256, 40.0, 0.02, 0)),
+                  ba=tuple(_line_ba_problem(49, 350, 0.02, 0.3, 5)))
+    ranks = _ranks_module().spawn("dense_lm_card", world, tmp_path, inputs, 600,
+                                  backend="nccl")
+    n = SlamConfig().pg_iterations
+    for mesh in meshes:
+        out = ranks[0][mesh]
+        for solver in ("pg", "ba"):
+            cap, eager, single = (out[solver, k] for k in ("captured", "eager", "single"))
+            for a, b in zip(cap[:-1], eager[:-1], strict=True):
+                assert torch.equal(a, b), (mesh, solver)
+            assert (cap[-1]["lm_captures"], cap[-1]["lm_replays"]) == (1, n - 1)
+            assert eager[-1]["lm_captures"] == 0
+            if mesh == "w1":
+                for a, b in zip(cap[:-1], single[:-1], strict=True):
+                    assert torch.equal(a, b), (mesh, solver)
+            else:  # tests/test_torch_parallel.py's bounds
+                assert float((cap[0] - single[0]).abs().max()) <= 1e-3, (mesh, solver)
+                c, ref = float(cap[-2]), float(single[-2])
+                assert abs(c - ref) <= 1e-3 * abs(ref) + 1e-4, (mesh, solver)
+            (cap_t, cap_st), (eager_t, _) = out["trace", solver, True], out["trace", solver, False]
+            print(f"{mesh} {solver} on {torch.cuda.get_device_name(0)}: captured trace {cap_t}, "
+                  f"eager trace {eager_t}")
+            per_call = eager_t["eager_nccl"] / eager_t["allreduce_calls"]
+            assert cap_t["replays"] == cap_st["lm_replays"] == trace_n - 1
+            assert cap_t["replays_without_events"] == 0
+            assert cap_t["replayed_nccl"] == per_call * allreduces[solver] * (trace_n - 1)
+            assert cap_t["eager_nccl"] + cap_t["replayed_nccl"] == eager_t["eager_nccl"]
+            if mesh != "w1":
+                assert per_call == 1
+
+
 # The small grid of tests/test_torch_render_device.py
 RENDER_KW = dict(cart_size=512, cart_downsample=8, n_candidates=256, anms_top_k=100,
                  k_max=128, max_keyframes=128)

@@ -121,8 +121,9 @@ def test_lm_matches_jax(solved, name, method):
 
 def test_auto_picks_dense_up_to_1024_nodes(ring, monkeypatch):
     calls = []
-    monkeypatch.setattr(tpg, "_optimize_pose_graph_dense", lambda g, cfg: calls.append("dense"))
-    monkeypatch.setattr(tpg, "_optimize_pose_graph_pcg", lambda g, cfg, stats: calls.append("pcg"))
+    monkeypatch.setattr(tpg, "_optimize_pose_graph_dense",
+                        lambda g, cfg, **kw: calls.append("dense"))
+    monkeypatch.setattr(tpg, "_optimize_pose_graph_pcg", lambda g, cfg, **kw: calls.append("pcg"))
     _, tg = ring
     big = tg._replace(poses=torch.zeros(1025, 3))
     tpg.optimize_pose_graph(tg, SlamConfig())

@@ -1,7 +1,7 @@
 """Rank side of the port's multi-process tests, and the spawner that runs them.
 
 The tests in `tests/test_torch_{parallel,dist_ba,batch_odometry,
-sharded_cg_graph}.py` compute their JAX references in the test process and
+sharded_cg_graph,dense_lm_graph}.py` compute their JAX references in the test process and
 hand the inputs to real processes, one per rank, that join a gloo group on a
 file store in the test's temporary directory (never a TCP port: the suite
 runs several pytest workers at once).  `tests/test_torch_cuda.py` runs its
@@ -233,6 +233,76 @@ def check_sharded_cg(inp, mesh):
     return out
 
 
+def _sharded_dense(g, p, cfg, mesh, replay=True):
+    """The sharded dense pose graph and BA through their entry points ->
+    ((poses, cost, stats), (poses, landmarks, cost, stats))."""
+    from radarslampy_tpu_torch.parallel.dist_ba import optimize_ba_sharded
+    from radarslampy_tpu_torch.parallel.dist_posegraph import optimize_pose_graph_sharded
+
+    st_pg, st_ba = {}, {}
+    pg = optimize_pose_graph_sharded(g, cfg, mesh, "dense", st_pg, replay)
+    ba = optimize_ba_sharded(p, cfg, mesh, method="dense", stats=st_ba, replay=replay)
+    return (*pg, st_pg), (*ba, st_ba)
+
+
+def _forbidding_body(body, seen, name):
+    """The LM body `body` run under `Forbid(SYNC_OPS + HOST_DATA_OPS)`;
+    `seen` counts, under (name, op), the ops it lets through and, under
+    (name, "bodies"), the calls."""
+    from tests.torch_host_reads import HOST_DATA_OPS, SYNC_OPS, Forbid
+
+    class Counting(Forbid):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[name, str(func)] += 1
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    def wrapped(*args, **kwargs):
+        seen[name, "bodies"] += 1
+        with Counting(SYNC_OPS + HOST_DATA_OPS):
+            return body(*args, **kwargs)
+
+    return wrapped
+
+
+def check_dense_lm(inp, mesh):
+    """The sharded dense pose graph and BA through their entry points, and
+    as the loops before their iteration became a captured body
+    (`tests/torch_dense_lm_reference.py`) with the mesh's hooks; on a mesh of
+    2, the entry points again with each LM body (`posegraph.pose_graph_lm_step`,
+    `ba.ba_lm_step`) run under `Forbid(SYNC_OPS + HOST_DATA_OPS)`."""
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.models import ba, posegraph
+    from radarslampy_tpu_torch.parallel import dist_ba, dist_posegraph
+    from radarslampy_tpu_torch.parallel.mesh import all_gather, axis_size, pmax, psum
+    from tests import torch_dense_lm_reference as ref
+
+    cfg = SlamConfig(**inp["cfg"])
+    g, p = _pg_graph(inp), ba.BAProblem(*inp["ba"])
+    out = {}
+    out["pg", "entry"], out["ba", "entry"] = _sharded_dense(g, p, cfg, mesh)
+
+    def red(x):
+        return psum(x, mesh)
+
+    out["pg", "loop"] = ref.pose_graph_dense(dist_posegraph._local_edges(g, mesh), cfg, red,
+                                             lambda x: pmax(x, mesh))
+    poses, lms, cost = ref.ba_dense(dist_ba._local_problem(p, mesh), cfg, 8, red)
+    out["ba", "loop"] = (poses, all_gather(lms, mesh), cost)
+    if axis_size(mesh) == 2:
+        seen = collections.Counter()
+        bodies = posegraph.pose_graph_lm_step, ba.ba_lm_step
+        posegraph.pose_graph_lm_step = _forbidding_body(bodies[0], seen, "pg")
+        ba.ba_lm_step = _forbidding_body(bodies[1], seen, "ba")
+        try:  # every rank reads the same values, so all fail at the same op
+            out["pg", "forbid"], out["ba", "forbid"] = _sharded_dense(g, p, cfg, mesh)
+        except AssertionError as e:
+            seen["failed", str(e)] += 1
+        finally:
+            posegraph.pose_graph_lm_step, ba.ba_lm_step = bodies
+        out["forbid"] = dict(seen)
+    return out
+
+
 def _on(dev, tup):
     return tuple(t.to(dev) for t in tup)
 
@@ -287,9 +357,51 @@ def check_sharded_cg_card(inp, mesh):
     return _cpu(out)
 
 
+def check_dense_lm_card(inp, mesh):
+    """On the card: the sharded dense pose graph and BA captured (the entry
+    points), eager (`replay=False`) and the single-device solves; then each
+    of the two at `inp["trace_iterations"]` LM iterations under
+    torch.profiler, captured and eager (`utils/profiling.collective_trace`,
+    one window a solver)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarslampy_tpu_torch.config import SlamConfig
+    from radarslampy_tpu_torch.models.ba import BAProblem, optimize_ba
+    from radarslampy_tpu_torch.models.posegraph import PoseGraph, optimize_pose_graph
+    from radarslampy_tpu_torch.parallel.dist_ba import optimize_ba_sharded
+    from radarslampy_tpu_torch.parallel.dist_posegraph import optimize_pose_graph_sharded
+    from radarslampy_tpu_torch.parallel.mesh import mesh_device
+    from radarslampy_tpu_torch.utils.profiling import collective_trace
+
+    dev = mesh_device(mesh)
+    cfg = SlamConfig(**inp["cfg"])
+    g, p = PoseGraph(*_on(dev, inp["ring"])), BAProblem(*_on(dev, inp["ba"]))
+    out = {}
+    out["pg", "captured"], out["ba", "captured"] = _sharded_dense(g, p, cfg, mesh)
+    out["pg", "eager"], out["ba", "eager"] = _sharded_dense(g, p, cfg, mesh, replay=False)
+    st_pg, st_ba = {}, {}
+    out["pg", "single"] = (*optimize_pose_graph(g, cfg, "dense", st_pg), st_pg)
+    out["ba", "single"] = (*optimize_ba(p, cfg, method="dense", stats=st_ba), st_ba)
+    short = dataclasses.replace(cfg, pg_iterations=inp["trace_iterations"])
+    solves = {"pg": lambda replay, st: optimize_pose_graph_sharded(g, short, mesh, "dense", st,
+                                                                   replay),
+              "ba": lambda replay, st: optimize_ba_sharded(p, short, mesh, method="dense",
+                                                           stats=st, replay=replay)}
+    for name, solve in solves.items():
+        for replay in (True, False):
+            st = {}
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                solve(replay, st)
+                torch.cuda.synchronize()
+            out["trace", name, replay] = (collective_trace(prof.events()), st)
+    return _cpu(out)
+
+
 CHECKS = {"parallel": check_parallel, "dist_ba": check_dist_ba,
           "batch_odometry": check_batch_odometry, "sharded_cg": check_sharded_cg,
-          "sharded_cg_card": check_sharded_cg_card}
+          "sharded_cg_card": check_sharded_cg_card, "dense_lm": check_dense_lm,
+          "dense_lm_card": check_dense_lm_card}
 
 
 def main(check: str, world: int, rank: int, workdir: Path, backend: str = "gloo"):
